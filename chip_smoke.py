@@ -20,12 +20,37 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   5. placement parity: the port's device placement on b3000 against
      maple_tpu's pipelined placer on the same input (REF_B3000_*), and on
      example_sub80 against maple_tpu's serial placement (all samples
-     placed, same minor count, LK within 1e-6).
+     placed, same minor count, LK within 1e-6);
+  6. the SPR main path: ``--devicePlacement --deviceTopology`` on b3000
+     with MAPLE_SPR_EXACT=1 (the pair kernel in placement and in the SPR
+     rounds; SPR launches, counted apart, must be positive), then
+     ``--deviceTopology`` alone (host placement, the proxy screen); the
+     stage walls, the SPR device time and each pass's counts are printed;
+  7. SPR pass parity: one pass of each screen on maple_tpu's serial
+     placement of b3000 against maple_tpu's own pass (REF_SPR): the same
+     query and anchor counts and proposals, post-pass LK within 1e-6; a
+     proposal of the exhaustive screen may differ only inside its float32
+     margin, one of the proxy screen only where re-scoring every anchor
+     then agrees;
+  8. the screen chunk (pair kernel, masks, top-1) against its plain
+     version on the card, on phase 7's first full chunk: the same -inf
+     rows, top-1 scores within 1e-9 (f64) and 1e-4 (f32), CUDA-event
+     times of both.
 The line before the last is the card's name and power limit, the one
-before it the kernel report, and the last line the result.
+before it the kernel report, and the last line the result.  In the
+kernel report, ``launches`` and ``launches_by_path`` are the pair kernel's
+launches in phase 6's exhaustive run (placement and SPR);
+``launches_by_run`` holds each CLI run's own count, reset just before it.
+
+    python3 chip_smoke.py --profile-spr
+
+runs phases 1 and 2, then torch.profiler around one SPR pass of each
+screen on phase 7's b3000 tree (after a warm-up pass of each): the device's
+busy share of the pass and its heaviest kernels.  It prints no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -53,6 +78,63 @@ F32_REL = 1e-4                       # float32 kernel vs float64 plain
 # The minor count follows the tie order of float32 screen scores.
 REF_B3000_LK = -103220.79119954497
 REF_B3000_MINORS = 606
+SPR_LK_TOL = 1e-6                    # post-pass LK, as the placement gate
+SPR_MARGIN_REL = 1e-4                # float32 margin of a differing proposal
+# maple_tpu's device_topology_update, one pass on b3000: maple_tpu's serial
+# placement (the REF_B3000 note above), set_all_dirty, recalculate_all,
+# then the first SPR round's params (True, 2, 61.834284532762645, -0.1),
+# with JAX_PLATFORMS=cpu.  "exact": MAPLE_SPR_EXACT=1, the float32 screen
+# through the Pallas kernel in interpret mode.  "proxy": the default,
+# the product on XLA CPU; the same proposals come with topm 2**20 (every
+# anchor re-scored).  "nodes": the proposals as handed to apply_spr_moves
+# (ascending screened improvement, applied from the end), with their
+# "improvements"; "improvement": what the pass returned; "lk": the LK
+# after recalculate_all from the pass's root.
+REF_SPR = {
+    "exact": {
+        "queries": 3426, "anchors": 2602,
+        "nodes": [
+            1397, 3104, 2665, 3951, 3290, 2407, 938, 2644, 1427,
+            4581, 3789, 1231, 3266, 3086, 3579, 3880, 2194, 751,
+            3078, 4447, 2671, 1291, 2202, 3470, 2573, 4607, 1370,
+            4231, 3812, 4623, 1951, 1583, 2232, 4349, 2984, 1437,
+            472, 147, 4052, 143, 50],
+        "improvements": [
+            0.1011066851, 0.1047512486, 0.1428261495,
+            0.1472514229, 0.162489094, 0.2062892153, 0.2179765629,
+            0.4041884042, 0.4142149923, 0.6502662523,
+            0.6528279038, 0.6606668178, 0.9143880454,
+            0.9155504748, 1.077434147, 1.098550491, 1.183884626,
+            1.494637187, 1.617252231, 1.742621105, 2.003163929,
+            2.512088766, 2.570305098, 3.939141371, 4.378513176,
+            4.557200676, 5.118378763, 6.132966849, 6.133320576,
+            6.848351909, 7.348953421, 7.348953613, 7.416452936,
+            7.912881991, 7.912939227, 8.914342789, 9.30509788,
+            9.382757694, 9.972120968, 10.2285535, 10.39160891],
+        "improvement": 34.161791417722085, "lk": -103190.00153130965},
+    "proxy": {
+        "queries": 3426, "anchors": 2602,
+        "nodes": [
+            1397, 3104, 2665, 3951, 3290, 2407, 938, 2644, 1427,
+            4581, 3789, 1231, 3266, 3086, 3579, 3880, 2194, 751,
+            3078, 4447, 2671, 1291, 2202, 3470, 2573, 4607, 1370,
+            4231, 3812, 4623, 1583, 1951, 2232, 4349, 2984, 1437,
+            472, 147, 4052, 143, 50],
+        "improvements": [
+            0.1011067225, 0.1047515596, 0.1428276422,
+            0.1472521243, 0.1624891849, 0.2062881982,
+            0.2179765176, 0.4041884237, 0.4142155426,
+            0.6502665972, 0.6528272432, 0.6606657143,
+            0.9143870233, 0.9155500186, 1.077430903, 1.098549415,
+            1.183886289, 1.494637241, 1.617252395, 1.742620607,
+            2.003162651, 2.512086272, 2.570304527, 3.939137932,
+            4.37851795, 4.557200824, 5.118377676, 6.132967652,
+            6.133320487, 6.848354564, 7.34895352, 7.34895352,
+            7.416452866, 7.912881998, 7.91293962, 8.91434295,
+            9.305097928, 9.38275767, 9.972120907, 10.22855358,
+            10.39160893],
+        "improvement": 34.161791417722085, "lk": -103190.00153130965},
+}
 
 
 def check(ok, msg):
@@ -113,8 +195,10 @@ def median_ms(torch, fn, reps, warmup=2):
     return float(np.median(times))
 
 
-def phase_main_path(torch):
-    """The CLI on b3000.  Returns (launches, the run it made)."""
+def run_cli(torch, argv):
+    """``cli.main(argv)`` on b3000, in-process, with the pair kernel's
+    launch count set to 0 just before and read just after.  Returns
+    (wall, launches, final LK, the run it made)."""
     from maple_tpu_torch import cli
     from maple_tpu_torch import pipeline as TP
     from maple_tpu_torch.ops import append_pairs as AP
@@ -131,8 +215,8 @@ def phase_main_path(torch):
             out = os.path.join(tmp, "b3000")
             AP.append_scores_prestacked.launches = 0
             t0 = time.perf_counter()
-            rc = cli.main(["--input", B3000, "--output", out,
-                           "--devicePlacement", "--overwrite"])
+            rc = cli.main(["--input", B3000, "--output", out, *argv,
+                           "--overwrite"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = AP.append_scores_prestacked.launches
@@ -142,10 +226,15 @@ def phase_main_path(torch):
                 lk = float(f.read().strip())
     finally:
         TP.run_inference = run_inference
-    check(launches > 0, "the main path launched no pair kernel")
     check(np.isfinite(lk), f"LK {lk} is not finite")
     check("jax" not in sys.modules, "jax was imported")
-    run = runs[0]
+    return wall, launches, lk, runs[0]
+
+
+def phase_main_path(torch):
+    """The CLI on b3000.  Returns (launches, the run it made)."""
+    wall, launches, lk, run = run_cli(torch, ["--devicePlacement"])
+    check(launches > 0, "the main path launched no pair kernel")
     pp = run.pplacer
     t = run.timings
     print(f"[main] {N_SAMPLES} samples end to end in {wall:.2f} s "
@@ -331,6 +420,295 @@ def phase_placement_parity(torch):
           f"sub80: placement LK differs from serial by {lk - ser_lk}")
 
 
+def first_round_params(run):
+    """The first SPR round's parameters (the fast initial search,
+    maple_tpu/pipeline.py:1144-1148)."""
+    cfg = run.cfg
+    return (cfg.strictTopologyStopRulesInitial,
+            cfg.allowedFailsTopologyInitial,
+            run.dc.thresholdLogLKtopologyInitial,
+            cfg.thresholdTopologyPlacementInitial)
+
+
+def phase_spr_main_path(torch):
+    """The CLI on b3000 with --deviceTopology: the exhaustive screen after
+    device placement (the pair kernel in both stages), then the default
+    proxy screen after host placement.  Returns the pair kernel's launches
+    in each run (keyed by the run's flags), and the exhaustive run's split
+    by path; every count is of one run, reset just before it."""
+    from maple_tpu_torch.parallel import batch_spr as BS
+    runs, by_path = {}, {}
+    for name, argv, exact in (
+            ("exact", ["--devicePlacement", "--deviceTopology"], True),
+            ("proxy", ["--deviceTopology"], False)):
+        if exact:
+            os.environ["MAPLE_SPR_EXACT"] = "1"
+        BS.stats.reset()
+        try:
+            wall, n, lk, run = run_cli(torch, argv)
+        finally:
+            os.environ.pop("MAPLE_SPR_EXACT", None)
+        passes = list(BS.stats.passes)
+        spr = sum(p.kernel_launches for p in passes)
+        check(passes, f"{name}: no device SPR screen ran")
+        check(all(p.branch == name for p in passes),
+              f"{name}: a pass took another screen")
+        if exact:
+            check(spr > 0, "the SPR rounds launched no pair kernel")
+            check(n - spr > 0, "device placement launched no pair kernel")
+            by_path = {"placement": n - spr, "spr_exact": spr}
+        else:
+            check(n == 0, f"the proxy run launched the pair kernel {n} times")
+        runs[run_label(argv, exact)] = n
+        t = run.timings
+        dev_s = sum(p.device_s for p in passes)
+        print(f"[spr-main] {name} screen ({' '.join(argv)}): {wall:.2f} s "
+              f"end to end, final LK {lk}; pair kernel launches: "
+              f"{n - spr} in placement, {spr} in SPR")
+        print(f"[spr-main] {name}: placement finding {t['finding']:.2f} s, "
+              f"placing {t['placing']:.2f} s, topology {t['topology']:.2f} "
+              f"s; SPR device time {dev_s:.4f} s "
+              f"({100 * dev_s / t['topology']:.2f}% of the topology wall) "
+              f"over {len(passes)} passes")
+        for i, p in enumerate(passes):
+            print(f"[spr-main] {name} pass {i + 1}: {p.queries} queries x "
+                  f"{p.anchors} anchors, {p.chunks} chunks, "
+                  f"{p.kernel_launches} kernel launches, {p.proposals} "
+                  f"proposals; host collect {p.collect_s:.3f} s, "
+                  f"pack+queue {p.pack_s:.3f} s, decide {p.decide_s:.3f} s, "
+                  f"apply {p.apply_s:.3f} s; device {p.device_s:.4f} s")
+    return runs, by_path
+
+
+def run_label(argv, exact):
+    return " ".join(argv) + (" MAPLE_SPR_EXACT=1" if exact else "")
+
+
+def spr_pass(torch, dev, path, exact, topm=None, capture=None,
+             trace=contextlib.nullcontext):
+    """One SPR pass of the port on maple_tpu's serial placement of
+    ``path`` (set_all_dirty, recalculate_all, the first round's params).
+    With ``capture`` (a list), the exhaustive screen's first full chunk
+    is kept there.  ``trace()`` is entered around the pass alone.
+    Returns (ScreenPass, the proposals handed to apply_spr_moves, pass
+    improvement, post-pass LK, wall, params)."""
+    from maple_tpu.runtime.tree import set_all_dirty
+    from maple_tpu.search.spr import SprCounters
+    from maple_tpu_torch.parallel import batch_spr as BS
+    run, _ = serial_placement(path)
+    set_all_dirty(run.tree, run.root)
+    run.rt.recalculate_all(run.root)
+    params = first_round_params(run)
+    seen = []
+    apply, chunk = BS.apply_spr_moves, BS.screen_chunk
+
+    def record(rt, proposals, params, counters):
+        seen.append(list(proposals))
+        return apply(rt, proposals, params, counters)
+
+    def keep_chunk(*args, **kw):
+        if capture is not None and not capture \
+                and args[3].shape[0] == BS.EXACT_CHUNK:
+            capture.append((tuple(a.clone() for a in args), dict(kw)))
+        return chunk(*args, **kw)
+
+    BS.apply_spr_moves, BS.screen_chunk = record, keep_chunk
+    if exact:
+        os.environ["MAPLE_SPR_EXACT"] = "1"
+    BS.stats.reset()
+    try:
+        with trace():
+            t0 = time.perf_counter()
+            if topm is None:
+                new_root, imp = BS.device_topology_update(
+                    run.rt, run.root, params, device=dev)
+            else:
+                new_root, imp = BS._screen_single_device(
+                    run.rt, run.root, params, SprCounters(), time.time(),
+                    device=dev, topm=topm)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        BS.apply_spr_moves, BS.screen_chunk = apply, chunk
+        os.environ.pop("MAPLE_SPR_EXACT", None)
+    root = run.root if new_root is None else new_root
+    run.rt.recalculate_all(root)
+    lk = run.rt.calculate_tree_likelihood(root)
+    (st,) = BS.stats.passes
+    return st, (seen[0] if seen else []), imp, lk, wall, params
+
+
+def spr_differences(name, st, props, ref, thresh):
+    """The proposals that differ from maple_tpu's (membership, then apply
+    order), printed node by node with their float32 margin.  Returns a
+    list of (node, inside the margin)."""
+    best = dict(zip(st.q_nodes.tolist(), zip(st.q_best, st.q_base)))
+    mine = {p[0]: p[2] for p in props}
+    theirs = dict(zip(ref["nodes"], ref["improvements"]))
+    out = []
+    for node in sorted(set(mine) ^ set(theirs)):
+        b, base = (float(x) for x in best[node])
+        margin = min(abs(b + thresh - base), abs(b - base))
+        ok = bool(margin < SPR_MARGIN_REL * abs(b))
+        print(f"[spr] {name}: node {node} proposed by "
+              f"{'the port' if node in mine else 'maple_tpu'} only: "
+              f"screened best {b!r}, current {base!r}, float32 margin "
+              f"{margin:.3e} ({'inside' if ok else 'OUTSIDE'} "
+              f"{SPR_MARGIN_REL}*|score|)")
+        out.append((node, ok))
+    common = [n for n in (p[0] for p in props) if n in theirs]
+    ref_pos = {n: i for i, n in enumerate(ref["nodes"])}
+    for i, a in enumerate(common):
+        for b in common[i + 1:]:
+            if ref_pos[a] > ref_pos[b]:   # applied in the other order
+                gap = abs(mine[a] - mine[b])
+                ok = bool(gap < SPR_MARGIN_REL * abs(best[a][0]))
+                print(f"[spr] {name}: nodes {a} and {b} swap apply order: "
+                      f"improvements {mine[a]!r} and {mine[b]!r}, gap "
+                      f"{gap:.3e} ({'inside' if ok else 'OUTSIDE'} "
+                      f"{SPR_MARGIN_REL}*|score|)")
+                out.append((a, ok))
+    return out
+
+
+def report_spr_pass(name, st, props, imp, lk, wall, ref):
+    print(f"[spr] {name}: {st.queries} queries x {st.anchors} anchors "
+          f"(maple_tpu {ref['queries']} x {ref['anchors']}), {st.chunks} "
+          f"chunks, {len(props)} proposals (maple_tpu "
+          f"{len(ref['nodes'])}), pass improvement {imp!r} (maple_tpu "
+          f"{ref['improvement']!r}), post-pass LK {lk!r} (maple_tpu "
+          f"{ref['lk']!r}, delta {lk - ref['lk']:.3e}); pass wall "
+          f"{wall:.2f} s, device {st.device_s:.4f} s")
+    check(st.queries == ref["queries"] and st.anchors == ref["anchors"],
+          f"{name}: screen size differs from maple_tpu's")
+
+
+def phase_spr_parity(torch):
+    """Both screens on b3000 against maple_tpu (REF_SPR).  Returns the
+    exhaustive screen's first full chunk for phase 8."""
+    dev = torch.device("cuda")
+    captured = []
+    ref = REF_SPR["exact"]
+    st, props, imp, lk, wall, params = spr_pass(torch, dev, B3000, True,
+                                                capture=captured)
+    report_spr_pass("exact", st, props, imp, lk, wall, ref)
+    diffs = spr_differences("exact", st, props, ref, params[3])
+    check(all(ok for _, ok in diffs),
+          "exact: a proposal differs from maple_tpu's outside the float32 "
+          "margin")
+    if not diffs:
+        check(abs(lk - ref["lk"]) <= SPR_LK_TOL,
+              f"exact: post-pass LK differs by {lk - ref['lk']}")
+    check(captured, "exact: no full screen chunk was captured")
+
+    ref = REF_SPR["proxy"]
+    st, props, imp, lk, wall, params = spr_pass(torch, dev, B3000, False)
+    report_spr_pass("proxy", st, props, imp, lk, wall, ref)
+    if spr_differences("proxy", st, props, ref, params[3]):
+        # a top-M tie: every anchor re-scored exactly, the two must agree
+        st, props, imp, lk, wall, params = spr_pass(
+            torch, dev, B3000, False, topm=st.anchors)
+        report_spr_pass("proxy topm=all", st, props, imp, lk, wall, ref)
+        check(not spr_differences("proxy topm=all", st, props, ref,
+                                  params[3]),
+              "proxy: proposals differ from maple_tpu's with every anchor "
+              "re-scored")
+    check(abs(lk - ref["lk"]) <= SPR_LK_TOL,
+          f"proxy: post-pass LK differs by {lk - ref['lk']}")
+    return captured[0]
+
+
+def phase_screen_chunk(torch, captured):
+    """The screen chunk through the kernel (f32, f64) against its plain
+    version on the card, on phase 7's first full chunk."""
+    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.parallel import batch_spr as BS
+    (pool, valid, a_tin, Cflat, prm, q_lo, q_hi, excl, mm, rf), kw = captured
+    n_prefix, uer = kw["n_prefix"], kw["uer"]
+
+    def plain(pool, Cflat, prm, mm, rf):
+        scores = AP.append_scores_prestacked_plain(
+            pool[:n_prefix], Cflat, prm, mm, rf, uer=uer)
+        BS._mask_trivial_targets(scores, valid[:n_prefix],
+                                 a_tin[:n_prefix], q_lo, q_hi, excl)
+        return torch.topk(scores, 1, dim=1)
+
+    def kernel(pool, Cflat, prm, mm, rf):
+        return BS.screen_chunk(pool, valid, a_tin, Cflat, prm, q_lo, q_hi,
+                               excl, mm, rf, n_prefix=n_prefix, uer=uer)
+
+    f32 = (pool, Cflat, prm, mm, rf)
+    f64 = tuple(x.double() for x in f32)
+    ref, k64, k32 = (fn(*a)[0].double().cpu().numpy()[:, 0] for fn, a in
+                     ((plain, f64), (kernel, f64), (kernel, f32)))
+    inf = np.isneginf(ref)
+    check(np.array_equal(inf, np.isneginf(k64)),
+          "screen chunk: float64 kernel -inf rows differ from plain")
+    check(np.array_equal(inf, np.isneginf(k32)),
+          "screen chunk: float32 kernel -inf rows differ from plain")
+    fin = ~inf
+    scale = np.maximum(1.0, np.abs(ref[fin]))
+    rel64 = float((np.abs(k64[fin] - ref[fin]) / scale).max())
+    abs32 = np.abs(k32[fin] - ref[fin])
+    rel32 = float((abs32 / scale).max())
+    check(rel64 <= F64_REL, f"screen chunk: float64 rel err {rel64}")
+    check(rel32 <= F32_REL, f"screen chunk: float32 rel err {rel32}")
+    ms = median_ms(torch, lambda: kernel(*f32), reps=20)
+    plain_ms = median_ms(torch, lambda: plain(*f32), reps=5, warmup=1)
+    print(f"[chunk] K={Cflat.shape[0]} queries, n_prefix {n_prefix}, "
+          f"B1={pool.shape[-1]}, B2={Cflat.shape[-1] // 16}, uer={int(uer)}: "
+          f"top-1 f64 rel err {rel64:.3e} (<= {F64_REL}), f32 rel err "
+          f"{rel32:.3e} (<= {F32_REL}), f32 max abs err {abs32.max():.3e}, "
+          f"-inf rows {int(inf.sum())}; screen_chunk kernel f32 {ms:.4f} "
+          f"ms, plain f32 {plain_ms:.4f} ms (median, CUDA events)")
+    return {"max_abs_err": float(abs32.max()), "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_profile_spr(torch):
+    """``--profile-spr``: torch.profiler (CPU and CUDA activities) around
+    one pass of each screen on phase 7's b3000 tree, after a warm-up pass
+    of each.  Prints the pass wall (profiled), the device's busy time (the
+    traced kernels and copies on the card) and its share of the wall, and
+    the heaviest device kernels; for the proxy screen, the products'
+    rate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from maple_tpu_torch.parallel.proxy_features import D
+    dev = torch.device("cuda")
+    for name, exact in (("exact", True), ("proxy", False)):
+        spr_pass(torch, dev, B3000, exact)   # warm-up
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        st, _, _, _, wall, _ = spr_pass(torch, dev, B3000, exact,
+                                        trace=lambda: prof)
+        kernels = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = kernels.get(e.name, (0, 0.0))
+                kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        busy = sum(us for _, us in kernels.values()) / 1e6
+        check(busy > 0, f"profile {name}: no device time traced")
+        print(f"[profile] {name}: {st.queries} queries x {st.anchors} "
+              f"anchors, {st.chunks} chunks; pass wall {wall:.4f} s "
+              f"(profiled), device busy {busy:.4f} s "
+              f"({100 * busy / wall:.2f}% of the pass), CUDA events "
+              f"device_s {st.device_s:.4f} s")
+        for kname, (n, us) in sorted(kernels.items(),
+                                     key=lambda kv: -kv[1][1])[:8]:
+            print(f"[profile] {name}: {us / 1e3:.3f} ms "
+                  f"({100 * us / 1e6 / busy:.2f}% of busy), {n} launches, "
+                  f"{us / n:.1f} us each: {kname[:100]}")
+        gemm_us = sum(us for k, (_, us) in kernels.items() if "gemm" in k)
+        if not exact and gemm_us:
+            cap = max(1024, 1 << (st.anchors - 1).bit_length())
+            rate = 2 * st.queries * D * cap / (gemm_us * 1e-6) / 1e12
+            print(f"[profile] proxy: products {rate:.1f} TFLOP/s in full "
+                  f"f32 ({st.queries} x {D} x {cap} over "
+                  f"{gemm_us / 1e3:.3f} ms of GEMM kernels)")
+
+
 def placed_count(run):
     tree = run.tree
 
@@ -348,8 +726,11 @@ def placed_count(run):
         sum(len(tree.minorSequences[n]) for n in live)
 
 
-def main():
+def main(argv):
     import torch
+    if argv not in ([], ["--profile-spr"]):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -357,14 +738,23 @@ def main():
     os.environ["MAPLE_DEVICE_RT"] = "1"
     phase_environment(torch)
     phase_build()
+    if argv:
+        phase_profile_spr(torch)
+        return 0
     launches, run = phase_main_path(torch)
     kern = phase_kernels(torch, run)
     phase_placement_parity(torch)
+    runs, by_path = phase_spr_main_path(torch)
+    chunk = phase_screen_chunk(torch, phase_spr_parity(torch))
+    # the slice's main path is the exhaustive --deviceTopology run; each
+    # count below is of one run, reset just before it
+    runs = {run_label(["--devicePlacement"], False): launches, **runs}
     print(json.dumps({"kernels": [{
         "name": "append_pairs", "route": "cuda",
         "source": "maple_tpu_torch/csrc/append_pairs.cu",
         "replaces": "maple_tpu/ops/pallas_append.py:349",
-        "launches": launches, **kern}]}))
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "launches_by_run": runs, **kern, "spr_screen_chunk": chunk}]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -373,4 +763,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -8,9 +8,12 @@ stages) and re-writes only what imports jax:
 - :mod:`maple_tpu_torch.ops`: the stacked entry layout, the device model
   and the appendProbNode pair kernel (CUDA C++ in ``csrc/``, built with
   ``nvcc`` at first use),
-- :mod:`maple_tpu_torch.parallel`: the pipelined device placer,
+- :mod:`maple_tpu_torch.parallel`: the pipelined device placer and the
+  device SPR screen,
+- :mod:`maple_tpu_torch.search`: the SPR rounds loop that reaches it,
 - :mod:`maple_tpu_torch.pipeline` and :mod:`maple_tpu_torch.cli`: the
-  ``--devicePlacement`` entry point on an explicit ``torch.device``.
+  ``--devicePlacement`` and ``--deviceTopology`` entry point on an
+  explicit ``torch.device``.
 
 This package never imports jax.
 """

@@ -31,11 +31,10 @@ _FLAG_FIELDS = {
 }
 
 # flags whose device code is not ported yet, with the ROADMAP item that
-# ports it; both would reach maple_tpu.parallel, which imports jax
+# ports it; it would reach maple_tpu.parallel code that imports jax
 _NOT_PORTED = {
-    "deviceTopology": "ROADMAP.md Queue 1 item 3 (device SPR screen)",
-    "devicePallas": "ROADMAP.md Queue 1 items 4-5 (exact SPR screen, "
-                    "legacy scorer)",
+    "devicePallas": "ROADMAP.md Queue 1 items 5-6 (legacy and mesh "
+                    "scorers)",
 }
 
 

@@ -77,6 +77,19 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, copy=True)
 
 
+def _to_host(ts: torch.Tensor, ti: torch.Tensor):
+    """Queue pinned host copies of a screen's (score, row) results on
+    CUDA (read them after an event recorded behind this call); CPU
+    tensors are returned as they are."""
+    if ts.device.type != "cuda":
+        return ts, ti
+    ts_h = torch.empty(ts.shape, dtype=ts.dtype, pin_memory=True)
+    ti_h = torch.empty(ti.shape, dtype=ti.dtype, pin_memory=True)
+    ts_h.copy_(ts, non_blocking=True)
+    ti_h.copy_(ti, non_blocking=True)
+    return ts_h, ti_h
+
+
 class StackedDevicePool:
     """Device-resident anchor pool in the pair kernel's stacked field
     layout, with a host mirror for incremental row scatters.
@@ -346,14 +359,10 @@ class PipelinedPlacer(BatchedPlacer):
             _upload(Cflat, device), _upload(prm, device), mm, rf,
             n_prefix=pool.n_prefix, uer=rt.model.using_error_rate,
             topk=self.topk)
+        ts, ti = _to_host(ts, ti)
         if on_cuda:
-            ts_h = torch.empty(ts.shape, dtype=ts.dtype, pin_memory=True)
-            ti_h = torch.empty(ti.shape, dtype=ti.dtype, pin_memory=True)
-            ts_h.copy_(ts, non_blocking=True)
-            ti_h.copy_(ti, non_blocking=True)
             done = torch.cuda.Event(enable_timing=True)
             done.record()
-            ts, ti = ts_h, ti_h
         # snapshot the row->node mapping AS OF THIS SCREEN: a later
         # full_rebuild (while this screen is still in flight) reassigns
         # rows wholesale, and translating this screen's top-k indices

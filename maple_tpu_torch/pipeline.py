@@ -1,10 +1,12 @@
 """The inference pipeline with its device stages on a torch device.
 
-``Run`` is :class:`maple_tpu.pipeline.Run` with the device placement
-stage re-written for PyTorch; every other stage (loading, EM, root
-search, SPR rounds, outputs) is the shared host engine.  Of
-``--devicePlacement``'s three branches only the pipelined one is ported;
-the other two raise instead of falling back to host placement.
+``Run`` is :class:`maple_tpu.pipeline.Run` with the device stages
+re-written for PyTorch: the pipelined branch of ``--devicePlacement``
+and the single-device ``--deviceTopology`` SPR screen.  Every other
+stage (loading, EM, root search, the host SPR crawl, outputs) is the
+shared host engine.  Of ``--devicePlacement``'s three branches only the
+pipelined one is ported; the other two raise instead of falling back to
+host placement.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from maple_tpu import pipeline as base
 from maple_tpu.config import MapleConfig
 from maple_tpu.native.engine import native_engine_supported
 from maple_tpu.runtime.partials import TreeRuntime
-from maple_tpu.runtime.tree import PhyloTree
+from maple_tpu.runtime.tree import PhyloTree, give_internal_node_names
 from maple_tpu.search.placement import (find_best_parent_for_new_sample,
                                         place_sample_on_tree)
 
@@ -111,6 +113,109 @@ class Run(base.Run):
                                     + pplacer.time_fine)
         self.timings["placing"] += pplacer.time_apply
         print("Device-batched sample placement completed", flush=True)
+
+    def run(self):
+        """Full pipeline: de-novo or online inference.  A copy of
+        maple_tpu.pipeline.Run.run (maple_tpu/pipeline.py:1079-1176) whose
+        SPR rounds are this package's (maple_tpu_torch.search.spr)."""
+        cfg = self.cfg
+        if cfg.assignmentFile or cfg.assignmentFileCSV:
+            from maple_tpu.analysis.lineages import \
+                run_lineage_assignment_mode
+            run_lineage_assignment_mode(cfg)
+            return
+        if cfg.inputRFtrees:
+            from maple_tpu.analysis.rf import run_rf_mode
+            out = run_rf_mode(cfg)
+            print(f"RF distances written to {out}")
+            return
+        if os.path.isfile(cfg.output + "_tree.tree") and not cfg.overwrite:
+            raise FileExistsError(
+                f"{cfg.output}_tree.tree exists; use overwrite")
+        self.load()
+        if cfg.inputTree:
+            self.setup_input_tree()
+        if cfg.findSamplePlacements:
+            if not cfg.inputTree:
+                raise ValueError("--findSamplePlacements requires "
+                                 "--inputTree")
+            from maple_tpu.analysis.placements import \
+                find_sample_placements_mode
+            find_sample_placements_mode(self)
+            return
+        if cfg.lineageRefs:
+            if not cfg.inputTree:
+                raise ValueError("--lineageRefs requires --inputTree")
+            from maple_tpu.analysis.placements import (
+                assign_lineages_by_reference_placement)
+            from maple_tpu.io.maple_format import read_maple_alignment
+            ref2, lineage_data = read_maple_alignment(cfg.lineageRefs)
+            if ref2 != self.refd.ref:
+                raise ValueError("lineage reference genome differs from "
+                                 "the alignment reference")
+            assign_lineages_by_reference_placement(self, lineage_data)
+            return
+        if getattr(cfg, "device_placement", False) and not cfg.inputTree:
+            self.build_initial_tree_device(
+                warmup=cfg.device_warmup, batch_size=cfg.device_batch_size)
+        else:
+            self.build_initial_tree()
+        self.post_placement()
+
+        if not cfg.doNotReroot:
+            from maple_tpu.search.rootsearch import find_best_root
+            print("Looking for possible better root", flush=True)
+            new_t1 = find_best_root(self.rt, self.root,
+                                    abayes_on=cfg.SPRTA)
+            if new_t1 != self.root:
+                self.root = new_t1
+                self._after_reroot()
+
+        if cfg.writeTreesToFileEveryTheseSteps > 0 \
+                or cfg.writeLKsToFileEveryTheseSteps > 0:
+            self.rt.trace = base.TraceState(cfg, self.names_in_tree)
+            self.rt.trace.initial_snapshot(self.rt, self.root)
+
+        give_internal_node_names(self.tree, self.root,
+                                 names_in_tree=self.names_in_tree,
+                                 replace_names=False)
+
+        # SPR rounds (reference :12149-12160: full rounds only for de-novo,
+        # largeUpdate, or SPRTA runs)
+        rounds = []
+        if cfg.fastTopologyInitialSearch:
+            rounds.append((cfg.strictTopologyStopRulesInitial,
+                           cfg.allowedFailsTopologyInitial,
+                           self.dc.thresholdLogLKtopologyInitial,
+                           cfg.thresholdTopologyPlacementInitial))
+        if not cfg.inputTree or cfg.largeUpdate or cfg.SPRTA:
+            for _ in range(cfg.numTopologyImprovements):
+                rounds.append((cfg.strictTopologyStopRules,
+                               cfg.allowedFailsTopology,
+                               self.dc.thresholdLogLKtopology,
+                               cfg.thresholdTopologyPlacement))
+        if rounds:
+            from .search.spr import run_spr_rounds
+            run_spr_rounds(self, rounds)
+        else:
+            self.write_outputs()
+        trace = getattr(self.rt, "trace", None)
+        if trace is not None:
+            trace.close()
+        print("Number of final references in the MAT: "
+              + str(self.rt.num_refs), flush=True)
+        print("Time spent finding placement nodes: "
+              + str(self.timings["finding"]))
+        print("Time spent placing samples on the tree: "
+              + str(self.timings["placing"]))
+        print("Time spent in topology updates: "
+              + str(self.timings["topology"]))
+        phases = self.rt.phase_times
+        if phases:
+            breakdown = ", ".join(f"{k}={v:.2f}s"
+                                  for k, v in sorted(phases.items()))
+            print(f"Phase breakdown (beyond the reference's stats): "
+                  f"{breakdown}", flush=True)
 
 
 def run_inference(cfg: MapleConfig, device: torch.device) -> Run:

@@ -54,16 +54,19 @@ def test_pipeline_never_imports_jax(tmp_path):
         import os, sys
         import torch
         from maple_tpu.config import MapleConfig
+        from maple_tpu_torch.parallel import batch_spr
         from maple_tpu_torch.pipeline import run_inference
         os.environ["MAPLE_DEVICE_RT"] = "1"
         run = run_inference(MapleConfig(input={SUB80!r},
                                   output={str(tmp_path / "nojax")!r},
                                   overwrite=True, device_placement=True,
                                   device_warmup=16, device_batch_size=16,
-                                  numTopologyImprovements=1),
+                                  numTopologyImprovements=1,
+                                  device_topology=True),
                       torch.device("cpu"))
         assert "jax" not in sys.modules, "jax was imported"
         assert run.pplacer.pool.capacity > 0, "no device screen ran"
+        assert batch_spr.stats.passes, "no device SPR screen ran"
         print("NO_JAX_OK")
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -75,10 +78,18 @@ def test_pipeline_never_imports_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--deviceTopology", "--devicePallas"])
-def test_cli_raises_on_unported_flags(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=flag):
+def test_cli_raises_on_unported_flags(tmp_path, monkeypatch, flag):
+    """--devicePallas is not ported and raises; --deviceTopology is ported,
+    so the CLI takes it and goes on to the CUDA check."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if flag == "--deviceTopology":
+        expected, match = RuntimeError, "CUDA"
+    else:
+        expected, match = NotImplementedError, flag
+    with pytest.raises(expected, match=match):
         cli.main(["--input", SUB80, "--output", str(tmp_path / "x"),
                   "--devicePlacement", flag])
+    assert not os.path.exists(str(tmp_path / "x") + "_tree.tree")
 
 
 def test_cli_raises_without_cuda(tmp_path, monkeypatch):
