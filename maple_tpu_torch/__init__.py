@@ -1,21 +1,21 @@
-"""maple-tpu-torch: the maple_tpu device path in PyTorch and CUDA.
+"""maple-tpu-torch: maple_tpu in PyTorch and CUDA, for one NVIDIA Hopper card.
 
-A second package beside :mod:`maple_tpu`, for one NVIDIA Hopper card.  It
-shares every jax-free module of :mod:`maple_tpu` (I/O, host kernels, tree
-runtime, search, models, the native C++ engine, the pipeline's host
-stages) and re-writes only what imports jax:
+A package of its own beside :mod:`maple_tpu`: it imports torch, never jax,
+and nothing of :mod:`maple_tpu`.
 
+- Host modules are copies of maple_tpu's jax-free ones under the same
+  names (``config``, ``refdata``, ``io``, ``core``, ``runtime``, ``search``,
+  ``models``, ``analysis``, ``native``, ``ops.pack``); the tests hold each
+  copy to its twin.  :mod:`maple_tpu_torch.native.bridge` builds its own
+  library from ``native/maple_native.cpp`` into ``_build/``.
 - :mod:`maple_tpu_torch.ops`: the stacked entry layout, the device model
   and the appendProbNode pair kernel (CUDA C++ in ``csrc/``, built with
-  ``nvcc`` at first use),
-- :mod:`maple_tpu_torch.parallel`: the pipelined device placer and the
-  device SPR screen,
-- :mod:`maple_tpu_torch.search`: the SPR rounds loop that reaches it,
+  ``nvcc`` at first use).
+- :mod:`maple_tpu_torch.parallel`: the device placers (proxy screen,
+  pipelined, legacy batch) and the device SPR screen.
 - :mod:`maple_tpu_torch.pipeline` and :mod:`maple_tpu_torch.cli`: the
-  ``--devicePlacement`` and ``--deviceTopology`` entry point on an
+  pipeline with ``--devicePlacement`` and ``--deviceTopology`` on an
   explicit ``torch.device``.
-
-This package never imports jax.
 """
 
 __version__ = "0.1.0"

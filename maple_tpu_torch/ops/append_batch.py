@@ -10,7 +10,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from maple_tpu.ops.pack import PackedBatch
+from .pack import PackedBatch
 
 
 class DeviceModel(NamedTuple):

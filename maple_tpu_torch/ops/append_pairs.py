@@ -17,12 +17,11 @@ from types import SimpleNamespace
 
 import torch
 
-from maple_tpu.ops.pack import TYPE_N, TYPE_O, TYPE_PAD, TYPE_R
-
 from . import _build
 from .layout import (F_BL1, F_BL2, F_END, F_EPS, F_FLAG, F_HAS1, F_HAS2,
                      F_P0, F_PREV, F_RATE, F_TYPE, F_VAL, NFIELDS,
                      stack_fields_host)
+from .pack import TYPE_N, TYPE_O, TYPE_PAD, TYPE_R
 
 # The plain version finds the contributing pairs on [k, N, B1] planes for
 # a chunk of queries; the chunk is cut so that one plane holds at most
@@ -125,15 +124,8 @@ def append_scores_prestacked_plain(Pstk, Cflat, prm, mm_flat, rf, *,
     mm = [[mm_v[4 * i + j] for j in range(4)] for i in range(4)]
     rf_v = rf.reshape(4)
     rfl = [rf_v[q] for q in range(4)]
-    P = Pstk.unsqueeze(0)                       # [1, N, F, B1]
-    cP = P[:, :, F_TYPE, :]                     # [1, N, B1]
-    endP, prevP = P[:, :, F_END, :], P[:, :, F_PREV, :]
-    is_nucP = cP < 3.5
-    is_R_P = cP == float(TYPE_R)
-    live_P = (cP != float(TYPE_N)) & (cP != float(TYPE_PAD))
-
-    active_all = (C[:, :, F_TYPE] != float(TYPE_N)) \
-        & (C[:, :, F_TYPE] != float(TYPE_PAD))          # [K, B2]
+    planes = _CandidatePlanes(Pstk)
+    active_all = _live(C[:, :, F_TYPE])                  # [K, B2]
     kc = max(1, _PLAIN_PLANE_ELEMS // max(1, N * B1))
     sums = []
     for k0 in range(0, K, kc):
@@ -142,15 +134,8 @@ def append_scores_prestacked_plain(Pstk, Cflat, prm, mm_flat, rf, *,
         acc = torch.zeros((kn, N, B1), dtype=dtype, device=Pstk.device)
         js = active_all[k0:k0 + kc].any(0).nonzero().flatten().tolist()
         for j in js:
-            cj = Cc[:, j, :].view(kn, 1, NFIELDS, 1)
-            cC = cj[:, :, F_TYPE]
-            active = (cC != float(TYPE_N)) & (cC != float(TYPE_PAD))
-            overlap = (torch.minimum(endP, cj[:, :, F_END])
-                       - torch.maximum(prevP, cj[:, :, F_PREV])) > 0.5
-            contributes = active & overlap & live_P \
-                & ~(is_R_P & (cC == float(TYPE_R))) \
-                & ~(is_nucP & (cP == cC))
-            ki, ni, ii = contributes.nonzero(as_tuple=True)
+            ki, ni, ii = planes.contributing(Cc[:, j, :]).nonzero(
+                as_tuple=True)
             if not ki.numel():
                 continue
             acc[ki, ni, ii] += _pair_log_factors(
@@ -163,6 +148,50 @@ def append_scores_prestacked_plain(Pstk, Cflat, prm, mm_flat, rf, *,
     if uer:
         scores = scores + (prm[:, 1] * prm[:, 3])[:, None]
     return scores
+
+
+def _live(types):
+    return (types != float(TYPE_N)) & (types != float(TYPE_PAD))
+
+
+class _CandidatePlanes:
+    """The [1, N, B1] planes of a stacked candidate tensor that decide
+    which entry pairs contribute."""
+
+    def __init__(self, Pstk):
+        P = Pstk.unsqueeze(0)                       # [1, N, F, B1]
+        self.types = P[:, :, F_TYPE, :]
+        self.ends, self.prevs = P[:, :, F_END, :], P[:, :, F_PREV, :]
+        self.is_nuc = self.types < 3.5
+        self.is_R = self.types == float(TYPE_R)
+        self.live = _live(self.types)
+
+    def contributing(self, cj):
+        """[k, N, B1] bool: the candidate entries whose pair with query
+        entry ``cj`` [k, F] contributes (overlapping, not dead, not R/R,
+        not the same nucleotide)."""
+        cj = cj.reshape(cj.shape[0], 1, NFIELDS, 1)
+        cC = cj[:, :, F_TYPE]
+        overlap = (torch.minimum(self.ends, cj[:, :, F_END])
+                   - torch.maximum(self.prevs, cj[:, :, F_PREV])) > 0.5
+        return _live(cC) & overlap & self.live \
+            & ~(self.is_R & (cC == float(TYPE_R))) \
+            & ~(self.is_nuc & (self.types == cC))
+
+
+def count_contributing_pairs(Pstk, Cflat) -> int:
+    """How many (query, candidate, entry, entry) pairs of these inputs add
+    a log factor: the data-dependent work of one call."""
+    K = Cflat.shape[0]
+    C = Cflat.reshape(K, -1, NFIELDS)
+    planes = _CandidatePlanes(Pstk)
+    kc = max(1, _PLAIN_PLANE_ELEMS // max(1, Pstk.shape[0] * Pstk.shape[2]))
+    total = 0
+    for k0 in range(0, K, kc):
+        Cc = C[k0:k0 + kc]
+        for j in _live(Cc[:, :, F_TYPE]).any(0).nonzero().flatten().tolist():
+            total += int(planes.contributing(Cc[:, j, :]).sum())
+    return total
 
 
 def _pair_log_factors(p, c, prm, mm, rfl, *, uer: bool):
@@ -272,7 +301,10 @@ def _pair_log_factors(p, c, prm, mm, rfl, *, uer: bool):
 
 
 # ----------------------------------------------------------------------
-# packed-dict entry points (twins of pallas_grid_append_scores{,_var})
+# packed-dict entry points (twins of pallas_grid_append_scores{,_var} and
+# pallas_batched_append_scores).  They stack both dicts on the host for
+# every call: for tests and one-off scoring; a placer keeps its pool
+# stacked on the device and calls append_scores_prestacked.
 
 def _grid_scores(P: dict, C: dict, blen, tip, dm):
     dtype = dm.mut_matrix.dtype
@@ -312,6 +344,13 @@ def grid_append_scores(P: dict, C: dict, blen: float, tip_c: bool, dm):
     uppers, every query at branch length ``blen`` and tip flag ``tip_c``:
     the twin of ``pallas_grid_append_scores``."""
     return _grid_scores(P, C, float(blen), float(tip_c), dm)
+
+
+def batched_append_scores(P: dict, C: dict, blen: float, tip_c: bool, dm):
+    """Scores [N] for one packed query (a dict of ``[B2]`` or ``[1, B2]``
+    fields) against N packed candidate uppers: the twin of
+    ``pallas_batched_append_scores``."""
+    return grid_append_scores(P, C, blen, tip_c, dm)[0]
 
 
 def grid_append_scores_var(P: dict, C: dict, blens, tips, dm):

@@ -20,8 +20,8 @@ Two screens, chosen as in the JAX package:
 All chunks are queued before any result is read.  Only the top-M (score,
 row) pairs of a chunk come back, into pinned host buffers behind a CUDA
 event: nothing synchronises the whole stream.  The host helpers
-(``_euler_intervals``, ``_collect_queries``, ``_collect_anchors``) are
-jax-free and imported from the JAX package.
+(``_euler_intervals``, ``_current_attachment_lk``, ``_collect_queries``,
+``_collect_anchors``) are copies of the JAX package's.
 
 Each pass appends a :class:`ScreenPass` to the module's ``stats``.
 
@@ -38,27 +38,131 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from maple_tpu.ops import pack as OP
-from maple_tpu.parallel.batch_spr import (_collect_anchors, _collect_queries,
-                                          _euler_intervals)
-from maple_tpu.runtime.tree import set_all_dirty
-from maple_tpu.search.parallel_spr import apply_spr_moves
-from maple_tpu.search.spr import SprCounters
-
+from ..models.hnz import get_hnz
+from ..ops import pack as OP
 from ..ops.append_pairs import append_scores_prestacked
 from ..ops.layout import stack_fields_host
-from .pipelined_placer import StackedDevicePool, _to_host, _upload
-from .proxy_features import D, D_HASH, FMAX_QUERY, G_BUCKETS, scatter_only
+from ..runtime.tree import set_all_dirty
+from ..search.parallel_spr import apply_spr_moves
+from ..search.spr import SprCounters
+from .proxy_features import (BF16_CAP, BF16_TOPM, D, D_HASH, FMAX_ANCHOR,
+                             FMAX_QUERY, G_BUCKETS, proxy_scores,
+                             scatter_only)
+from .stacked_pool import StackedDevicePool, to_host, upload
 
 EXACT_CHUNK = 64          # queries per pair-kernel launch
 PROXY_CHUNK = 256         # queries per proxy product
 PROXY_TOPM = 128          # anchors per query re-scored exactly
-BF16_CAP = 524288         # pools this large keep bf16 features ...
-BF16_TOPM = 192           # ... and re-score deeper to keep recall
 SCATTER_ROWS = 8192       # anchor rows densified per scatter: the float32
                           # [rows, D] temporary stays at 256 MiB
-UPCAST_ROWS = 65536       # bf16 pool rows upcast per product block
 _NO_TIN = np.iinfo(np.int32).max   # Euler entry of a row with no anchor
+
+
+def _euler_intervals(tree, root: int):
+    """Pre-order entry/exit counters: a is inside subtree(q) iff
+    tin[q] <= tin[a] < tout[q]."""
+    n = len(tree.up)
+    tin = np.zeros(n, dtype=np.int64)
+    tout = np.zeros(n, dtype=np.int64)
+    t = 0
+    stack = [(root, False)]
+    while stack:
+        node, done = stack.pop()
+        if done:
+            tout[node] = t
+            continue
+        tin[node] = t
+        t += 1
+        stack.append((node, True))
+        for c in tree.children[node] or ():
+            stack.append((c, False))
+    return tin, tout
+
+
+def _current_attachment_lk(rt, node: int):
+    """The node's current re-attachment score (the serial crawl's
+    best_current_lk, parallel_spr._propose_moves :99-120, incl. the HnZ
+    prior correction)."""
+    tree = rt.tree
+    cfg = rt.cfg
+    dist = tree.dist
+    up = tree.up
+    eff0 = rt.dc.effectivelyNon0BLen
+    parent = up[node]
+    child = tree.child_index(node)
+    vect_up = tree.probVectUpRight[parent] if child == 0 \
+        else tree.probVectUpLeft[parent]
+    if tree.mutations[node]:
+        vect_up = rt.pass_down(vect_up, node)
+    lk = rt.kern.append_prob_node(vect_up, tree.probVect[node],
+                                  tree.is_tip(node), dist[node])
+    if tree.use_hnz:
+        pn0 = up[node]
+        while dist[pn0] <= eff0 and up[pn0] is not None:
+            pn0 = up[pn0]
+        if dist[node] > eff0:
+            lk += get_hnz(cfg.HnZ, tree.nDesc0[pn0]) \
+                - get_hnz(cfg.HnZ, tree.nDesc0[pn0] - 1)
+        else:
+            lk += get_hnz(cfg.HnZ, tree.nDesc0[pn0]) \
+                - (get_hnz(cfg.HnZ, tree.nDesc0[pn0] - tree.nDesc0[node])
+                   + get_hnz(cfg.HnZ, tree.nDesc0[node]))
+    return lk
+
+
+def _collect_queries(rt, root: int, placement_thresh,
+                     keep_handles: bool = False):
+    """Eligible pruned-subtree queries with the serial crawl's own gates
+    (dirty flag, maxReplacements, the current-attachment threshold), each
+    exported as its global-frame lower vector plus (blen, tip, base
+    score).  With ``keep_handles`` the raw global-frame vector handles
+    are returned instead of exported tuples (the proxy screen's feature
+    export and exact re-score both run store-side)."""
+    tree = rt.tree
+    cfg = rt.cfg
+    q_nodes, q_vecs, q_blens, q_tips, q_base = [], [], [], [], []
+    stack = [root]
+    while stack:
+        n = stack.pop()
+        for c in tree.children[n] or ():
+            stack.append(c)
+        if tree.up[n] is None or not tree.dirty[n] \
+                or tree.replacements[n] > cfg.maxReplacements:
+            continue
+        base = _current_attachment_lk(rt, n)
+        if not (base < placement_thresh or tree.dist[n] or tree.use_hnz) \
+                or cfg.doNotImproveTopology:
+            continue
+        # pruned-subtree lower vector in the global frame (one pass
+        # through the composed frame list)
+        v = rt.global_frame_up(tree.probVect[n], n)
+        q_nodes.append(n)
+        q_vecs.append(v if keep_handles else rt.kern.export(v))
+        q_blens.append(tree.dist[n])
+        q_tips.append(tree.is_tip(n))
+        q_base.append(base)
+    return q_nodes, q_vecs, q_blens, q_tips, q_base
+
+
+def _collect_anchors(rt, root: int):
+    """Screen-eligible anchors (same criteria as the placement pool:
+    attached, non-zero branch, cached mid-branch vector) with their
+    global-frame totUp handles (MAT chains composed out, reference
+    :3749).
+
+    NOTE: the eligibility rule + MAT-chain walk has a packed-row twin
+    (stacked_pool.StackedRows.all_anchors) — an eligibility change must
+    land in both or the screens diverge from their pools."""
+    tree = rt.tree
+    eff0 = rt.dc.effectivelyNon0BLen
+    anchors, handles = [], []
+    for n in range(len(tree.up)):
+        if tree.up[n] is None or tree.children[n] is None:
+            continue
+        if tree.dist[n] > eff0 and tree.probVectTotUp[n] is not None:
+            anchors.append(n)
+            handles.append(rt.global_frame_up(tree.probVectTotUp[n], n))
+    return anchors, handles
 
 
 @dataclass
@@ -154,23 +258,9 @@ def spr_screen_step(AF, valid, a_tin, q_fidx, q_fw, q_lo, q_hi, excl, *,
     [K, 2] int32.  Returns float32 (scores [K, M], rows [K, M]).  The
     products are full float32 (as ``preferred_element_type=f32``): a bf16
     pool is upcast block by block, never multiplied in bf16."""
-    if torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError("spr_screen_step: float32 matmul precision is "
-                           f"{torch.get_float32_matmul_precision()!r}; the "
-                           "proxy scores need full float32 products")
-    K = q_fidx.shape[0]
-    cap = AF.shape[0]
-    QF = torch.zeros((K, AF.shape[1]), dtype=torch.float32, device=AF.device)
-    QF.scatter_add_(1, q_fidx.long(), q_fw)
-    if AF.dtype == torch.float32:
-        scores = QF @ AF.T
-    else:  # the rounding of JAX's QF.astype(AF.dtype), then f32 products
-        QF = QF.to(AF.dtype).float()
-        scores = torch.empty((K, cap), dtype=torch.float32, device=AF.device)
-        for r in range(0, cap, UPCAST_ROWS):
-            scores[:, r:r + UPCAST_ROWS] = QF @ AF[r:r + UPCAST_ROWS].float().T
+    scores = proxy_scores(AF, q_fidx, q_fw)
     _mask_trivial_targets(scores, valid, a_tin, q_lo, q_hi, excl)
-    return torch.topk(scores, min(topm, cap), dim=1)
+    return torch.topk(scores, min(topm, AF.shape[0]), dim=1)
 
 
 def screen_chunk(pool, valid, a_tin, Cflat, prm, q_lo, q_hi, excl, mm, rf,
@@ -248,7 +338,7 @@ def _screen_single_device(rt, root: int, params, counters, t0, *,
     t = time.time()
     store = rt.kern.store
     a_vids = np.asarray([h.vid for h in a_handles], np.int64)
-    fmax_a = 192
+    fmax_a = FMAX_ANCHOR
     while True:  # budgets grow on saturation (truncation is silent)
         aidx, aw, cnt = store.export_feats(a_vids, False, D_HASH,
                                            G_BUCKETS, fmax_a)
@@ -270,9 +360,9 @@ def _screen_single_device(rt, root: int, params, counters, t0, *,
     cap = 1024
     while cap < N:
         cap *= 2
-    # bf16 features at 512k+ rows (as the JAX package, whose f32 pool
-    # would not fit its 16 GB chip); the exact top-M re-score absorbs the
-    # rounding, and topm deepens to keep recall
+    # bf16 features at 512k+ rows (as the JAX package, for the halved
+    # footprint); the exact top-M re-score absorbs the rounding, and topm
+    # deepens to keep recall
     dtype = torch.float32
     if cap >= BF16_CAP:
         dtype = torch.bfloat16
@@ -283,13 +373,13 @@ def _screen_single_device(rt, root: int, params, counters, t0, *,
     valid = torch.zeros(cap, dtype=torch.bool, device=device)
     for s0 in range(0, N, SCATTER_ROWS):
         rows = np.arange(s0, min(N, s0 + SCATTER_ROWS), dtype=np.int64)
-        scatter_only(AF, valid, _upload(rows, device),
-                     _upload(aidx[rows], device), _upload(aw[rows], device),
-                     _upload(np.ones(len(rows), dtype=bool), device))
+        scatter_only(AF, valid, upload(rows, device),
+                     upload(aidx[rows], device), upload(aw[rows], device),
+                     upload(np.ones(len(rows), dtype=bool), device))
     tin, tout = _euler_intervals(tree, root)
     a_tin = np.full(cap, _NO_TIN, dtype=np.int32)
     a_tin[:N] = tin[np.asarray(anchors)]
-    dev_a_tin = _upload(a_tin, device)
+    dev_a_tin = upload(a_tin, device)
     events.end(start)
     row_of = {node: i for i, node in enumerate(anchors)}
     nodes_arr = np.asarray(q_nodes)
@@ -301,12 +391,12 @@ def _screen_single_device(rt, root: int, params, counters, t0, *,
         excl = _exclusions(tree, nodes, row_of)
         start = events.begin()
         ts, ti = spr_screen_step(
-            AF, valid, dev_a_tin, _upload(qidx[s:e], device),
-            _upload(qw[s:e], device),
-            _upload(tin[nodes].astype(np.int32), device),
-            _upload(tout[nodes].astype(np.int32), device),
-            _upload(excl, device), topm=topm)
-        ts, ti = _to_host(ts, ti)
+            AF, valid, dev_a_tin, upload(qidx[s:e], device),
+            upload(qw[s:e], device),
+            upload(tin[nodes].astype(np.int32), device),
+            upload(tout[nodes].astype(np.int32), device),
+            upload(excl, device), topm=topm)
+        ts, ti = to_host(ts, ti)
         pending.append((s, e, ts, ti, events.end(start)))
     st.chunks = len(pending)
     st.pack_s = time.time() - t
@@ -378,10 +468,10 @@ def _screen_single_device_exact(rt, root: int, params, counters, t0, *,
     tin, tout = _euler_intervals(tree, root)
     a_tin = np.full(pool.capacity, _NO_TIN, dtype=np.int32)
     a_tin[:n_anchors] = tin[pool.node_arr[:n_anchors]]
-    dev_a_tin = _upload(a_tin, device)
-    mm = _upload(np.asarray(rt.model.mut_matrix,
+    dev_a_tin = upload(a_tin, device)
+    mm = upload(np.asarray(rt.model.mut_matrix,
                             dtype=np.float32).reshape(1, 1, 16), device)
-    rf = _upload(np.asarray(rt.model.refd.root_freqs,
+    rf = upload(np.asarray(rt.model.refd.root_freqs,
                             dtype=np.float32).reshape(1, 1, 4), device)
     uer = rt.model.using_error_rate
     gtr = float(rt.dc.globalTotRate)
@@ -407,12 +497,12 @@ def _screen_single_device_exact(rt, root: int, params, counters, t0, *,
         excl = _exclusions(tree, nodes, pool.row_of)
         start = events.begin()
         ts, ti = screen_chunk(
-            pool.dev_pool, pool.dev_valid, dev_a_tin, _upload(Cflat, device),
-            _upload(prm, device),
-            _upload(tin[nodes].astype(np.int32), device),
-            _upload(tout[nodes].astype(np.int32), device),
-            _upload(excl, device), mm, rf, n_prefix=n_prefix, uer=uer)
-        ts, ti = _to_host(ts, ti)
+            pool.dev_pool, pool.dev_valid, dev_a_tin, upload(Cflat, device),
+            upload(prm, device),
+            upload(tin[nodes].astype(np.int32), device),
+            upload(tout[nodes].astype(np.int32), device),
+            upload(excl, device), mm, rf, n_prefix=n_prefix, uer=uer)
+        ts, ti = to_host(ts, ti)
         pending.append((s, e, ts, ti, events.end(start)))
     st.chunks = len(pending)
     st.kernel_launches = append_scores_prestacked.launches - launches0

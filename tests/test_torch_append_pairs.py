@@ -23,13 +23,14 @@ from maple_tpu.io.maple_format import read_maple_alignment
 from maple_tpu.ops import append_batch as AB
 from maple_tpu.ops import pack as OP
 from maple_tpu.ops import pallas_append as PA
-from maple_tpu.pipeline import Run as SerialRun
 from maple_tpu.refdata import Model, RefData
 
+from maple_tpu_torch.config import MapleConfig as PortConfig
 from maple_tpu_torch.ops import append_batch as TAB
 from maple_tpu_torch.ops import append_pairs as TAP
 from maple_tpu_torch.ops.layout import NFIELDS, stack_fields_host
-from maple_tpu_torch.parallel.pipelined_placer import StackedDevicePool
+from maple_tpu_torch.parallel.stacked_pool import StackedDevicePool
+from maple_tpu_torch.pipeline import Run as PortRun
 
 HERE = os.path.dirname(__file__)
 SUB80 = os.path.join(HERE, "goldens", "example_sub80.maple")
@@ -240,10 +241,11 @@ def test_grid_scores_var_params(x64, sub80_ref, model_name, rate_var,
 
 @pytest.fixture(scope="module")
 def sub80_tree(tmp_path_factory):
-    """A tree built serially (native engine) on example_sub80."""
+    """A tree built serially (the port's native engine) on
+    example_sub80."""
     out = tmp_path_factory.mktemp("sub80") / "ser"
-    run = SerialRun(MapleConfig(input=SUB80, output=str(out), model="GTR",
-                                overwrite=True))
+    run = PortRun(PortConfig(input=SUB80, output=str(out), model="GTR",
+                             overwrite=True), CPU)
     run.load()
     run.build_initial_tree()
     run.rt.recalculate_all(run.root)

@@ -4,10 +4,10 @@ Units on seeded numpy arrays: the anchor-row scatter against JAX
 ``_scatter_only``, the proxy step against ``_get_spr_screen_step()`` (f32
 and bf16 pools) and the exhaustive screen chunk against
 ``_screen_chunk_impl`` (Pallas interpret, float64).  Passes: one
-``device_topology_update`` of each package on two identical trees built
-by maple_tpu's serial placement on example_sub80, for the exhaustive
-screen, the proxy screen and python kernels; the proposals each package
-hands to ``apply_spr_moves`` must agree.
+``device_topology_update`` of each package on two identical trees, each
+built by its own package's serial placement on example_sub80, for the
+exhaustive screen, the proxy screen and python kernels; the proposals each
+package hands to ``apply_spr_moves`` must agree.
 """
 import numpy as np
 import pytest
@@ -15,13 +15,17 @@ import torch
 
 import jax.numpy as jnp
 
-from maple_tpu.config import MapleConfig
+import maple_tpu.config
+import maple_tpu.pipeline
+import maple_tpu.runtime.tree
 from maple_tpu.parallel import batch_spr as JB
 from maple_tpu.parallel.proxy_placer import _scatter_only
-from maple_tpu.pipeline import Run as SerialRun
-from maple_tpu.runtime.tree import set_all_dirty
 
+import maple_tpu_torch.config
+import maple_tpu_torch.pipeline
+import maple_tpu_torch.runtime.tree
 from maple_tpu_torch.parallel import batch_spr as TB
+from maple_tpu_torch.parallel import proxy_features as TF
 from maple_tpu_torch.parallel.proxy_features import scatter_only
 
 from test_torch_append_pairs import (SUB80, pool_and_queries,  # noqa: F401
@@ -82,7 +86,7 @@ def screen_masks(rng, cap, K, n_live):
 def test_spr_screen_step_matches_jax(monkeypatch, dtype):
     """A bf16 pool is upcast in row blocks (here 100 rows: three blocks,
     the last ragged)."""
-    monkeypatch.setattr(TB, "UPCAST_ROWS", 100)
+    monkeypatch.setattr(TF, "UPCAST_ROWS", 100)
     rng = np.random.default_rng(2)
     cap, width, K, F, n_live, topm = 256, 96, 24, 10, 200, 40
     af = np.zeros((cap, width), dtype=np.float32)
@@ -189,12 +193,16 @@ def test_screen_chunk_matches_jax(x64, sub80_tree):
         assert ti[k, 0] != best[k] and j_ti[k, 0] != best[k]
 
 
-def serial_tree(tmp_path, **flags):
-    run = SerialRun(MapleConfig(input=SUB80, output=str(tmp_path / "ser"),
-                                overwrite=True, **flags))
+def serial_tree(tmp_path, pkg, **flags):
+    """A serial placement of example_sub80 by package ``pkg`` (maple_tpu
+    or maple_tpu_torch), all dirty, and the first SPR round's params."""
+    cfg = pkg.config.MapleConfig(input=SUB80, output=str(tmp_path / "ser"),
+                                 overwrite=True, **flags)
+    run = pkg.pipeline.Run(cfg) if pkg is maple_tpu \
+        else pkg.pipeline.Run(cfg, CPU)
     run.load()
     run.build_initial_tree()
-    set_all_dirty(run.tree, run.root)
+    pkg.runtime.tree.set_all_dirty(run.tree, run.root)
     run.rt.recalculate_all(run.root)
     cfg = run.cfg
     params = (cfg.strictTopologyStopRulesInitial,
@@ -231,8 +239,8 @@ def test_device_topology_pass_matches_jax(tmp_path, monkeypatch, branch):
     flags = {"kernel_backend": "python"} if branch == "python" else {}
     j_seen = recording(monkeypatch, JB)
     t_seen = recording(monkeypatch, TB)
-    run_j, params = serial_tree(tmp_path, **flags)
-    run_t, _ = serial_tree(tmp_path, **flags)
+    run_j, params = serial_tree(tmp_path, maple_tpu, **flags)
+    run_t, _ = serial_tree(tmp_path, maple_tpu_torch, **flags)
     assert run_j.rt.kern.name == ("python" if branch == "python"
                                   else "native")
     root_j, imp_j = JB.device_topology_update(run_j.rt, run_j.root, params)
@@ -268,8 +276,8 @@ def test_proxy_chunks_and_scatter_spills(tmp_path, monkeypatch):
     the defaults (the spill and chunk loops carry no state)."""
     monkeypatch.delenv("MAPLE_SPR_EXACT", raising=False)
     seen = recording(monkeypatch, TB)
-    run_a, params = serial_tree(tmp_path)
-    run_b, _ = serial_tree(tmp_path)
+    run_a, params = serial_tree(tmp_path, maple_tpu_torch)
+    run_b, _ = serial_tree(tmp_path, maple_tpu_torch)
     TB.device_topology_update(run_a.rt, run_a.root, params, device=CPU)
     monkeypatch.setattr(TB, "SCATTER_ROWS", 7)
     TB.stats.reset()

@@ -18,8 +18,10 @@ from maple_tpu.config import MapleConfig
 from maple_tpu.parallel import pipelined_placer as JPP
 from maple_tpu.pipeline import Run as SerialRun
 
+from maple_tpu_torch.config import MapleConfig as PortConfig
 from maple_tpu_torch.ops.layout import F_END, F_EPS, F_FLAG, F_TYPE
 from maple_tpu_torch.parallel import pipelined_placer as PP
+from maple_tpu_torch.parallel import stacked_pool as SP
 from maple_tpu_torch.pipeline import Run
 
 from test_torch_append_pairs import (SUB80, pool_and_queries,  # noqa: F401
@@ -125,8 +127,8 @@ def serial_sub80(tmp_path_factory):
 
 
 def run_port(tmp_path, warmup=16, batch_size=16):
-    cfg = MapleConfig(input=SUB80, output=str(tmp_path / "dev"),
-                      model="GTR", overwrite=True, device_placement=True)
+    cfg = PortConfig(input=SUB80, output=str(tmp_path / "dev"),
+                     model="GTR", overwrite=True, device_placement=True)
     run = Run(cfg, CPU)
     run.load()
     run.build_initial_tree_device(warmup=warmup, batch_size=batch_size)
@@ -192,5 +194,5 @@ def test_make_update_rebuilds_past_row_limit(sub80_tree, monkeypatch):
     n = pool.full_rebuild()
     nodes = [int(x) for x in pool.node_arr[:n]]
     assert pool.make_update(nodes) is not None
-    monkeypatch.setattr(PP, "REBUILD_ROWS", n - 1)
+    monkeypatch.setattr(SP, "REBUILD_ROWS", n - 1)
     assert pool.make_update(nodes) is None
