@@ -53,19 +53,50 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      serial with the same placed and minor counts; on b3000 the whole
      pipeline through the command line, its pair-kernel launches counted
      as the ``legacy`` path; its last launch's inputs through the kernel
-     and its plain version, with times and bound.
+     and its plain version, with times and bound;
+ 13. the interval-algebra scorer (torch ops) on the card, on phase 12's
+     last batch: float64 against the same scorer on the CPU (1e-9, the
+     first 8 queries) and against the pair kernel on the card (1e-9 in
+     float64; rtol 2e-4, atol 2e-3 in float32; the same -inf cells); its
+     time at that shape, its bound and its peak memory;
+ 14. the legacy branch on its default scorer: MAPLE_DEVICE_LEGACY=1
+     ``--devicePlacement`` without ``--devicePallas``: example_sub80 within
+     1e-6 of serial; b3000 through the command line: the legacy placer on
+     the interval-algebra scorer, native kernels, 0 pair-kernel launches,
+     all placed, a finite LK, printed beside the --devicePallas run's;
+ 15. the mesh: a process group of one NCCL rank, a 1 x 1 (dp x cand) mesh:
+     ``dryrun_multichip`` on b3000 with the pair kernel (its launches
+     counted as the ``mesh`` path; the placement LK within 1.0 of phase
+     12's single-device placement on the same scorer), the mesh SPR pass
+     on the interval-algebra scorer (must not lower the LK), the
+     genome-sharded scorer on a 1 x 1 genome mesh against the dense one;
+     one tile of each mesh scorer bitwise equal to the single-device
+     scorer, on the operands of the run's own last placement call (a
+     query chunk against the whole pool) and on phase 12's last batch.
+     One card shows that the mesh code runs on CUDA tensors through NCCL;
+     tiles over several ranks are shown by the CPU tests (gloo, 4 ranks);
+ 16. ``maple_tpu_torch.tools.speed_of_light`` at N 8192, K 64, B1 = B2 =
+     64: both scorers' rows; then the device functions that are torch ops
+     (the anchor-row scatter, the proxy screen step, the legacy pool's row
+     scatter) timed beside their bounds at the b3000 runs' shapes.
 The line before the last is the card's name and power limit, the one
 before it the kernel report, and the last line the result.  In the
 kernel report, ``launches_by_path`` holds the pair kernel's launches on
 each path (placement and SPR of phase 6's exhaustive run, the legacy run
-of phase 12), each counted from 0 within its own run; ``launches`` is
-their sum; ``launches_by_run`` holds each CLI run's own count.
-``bound_ms`` is the larger of the call's bytes (each input once, the
-output once) over 3.35 TB/s and its operations (the entry pairs of these
-inputs that contribute, at about 100 float operations each, the figure in
-csrc/append_pairs.cu) over 67 TFLOP/s, the float32 peak outside the tensor
-cores.  No single PyTorch call computes the pair kernel's function, so
-``library_ms`` is null.
+of phase 12, the mesh run of phase 15), each counted from 0 within its own
+run; ``launches`` is their sum; ``launches_by_run`` holds each CLI run's
+own count; ``interval_algebra`` holds phase 13's numbers for the scorer
+that is torch ops, not a kernel.
+``bound_ms`` is the larger of the function's bytes (each input once in its
+packed types, 33 bytes a genome-list entry, the output once) over 3.35
+TB/s and its operations (the entry pairs of these inputs that contribute,
+at about 100 float operations each, the figure in csrc/append_pairs.cu)
+over 67 TFLOP/s, the float32 peak outside the tensor cores: one bound for
+the pair kernel and the interval-algebra scorer, which compute the same
+function (``tools/speed_of_light.py`` ``work_model``).  ``layout_bound_ms``
+is the same with the bytes of the pair kernel's own operands (16 float32
+planes, 64 bytes an entry).  No single PyTorch call computes the
+function, so ``library_ms`` is null.
 
     python3 chip_smoke.py --profile-spr
 
@@ -85,6 +116,12 @@ import time
 
 import numpy as np
 
+# the package lies beside this script: outside a checkout this import fails
+from maple_tpu_torch.dryrun import placed as placed_count
+from maple_tpu_torch.tools.speed_of_light import (F32_FLOPS,
+                                                  HBM_BYTES_PER_S, card,
+                                                  median_ms, work_model)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 B3000 = os.path.join(HERE, "tests", "data_b1429_3000.maple.gz")
 SUB80 = os.path.join(HERE, "tests", "goldens", "example_sub80.maple")
@@ -92,14 +129,12 @@ N_SAMPLES = 3000
 K_QUERIES, Q_BUDGET = 64, 128        # --deviceBatchSize, starting B2
 PREFIXES = (1024, 8192)
 PLACEMENT_LK_TOL = 1e-6              # maple_tpu's own device contract
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM, published
-F32_FLOPS = 67e12                    # float32 outside the tensor cores
-PAIR_FLOPS = 100                     # per contributing entry pair
-                                     # (csrc/append_pairs.cu)
 BRANCH_ENV = ("MAPLE_DEVICE_RT", "MAPLE_DEVICE_LEGACY", "MAPLE_PROXY_BF16",
               "MAPLE_PROXY_D", "MAPLE_SPR_EXACT")
 SYN_SAMPLES, SYN_SEED = 20000, 1
 F64_REL = 1e-9                       # kernel vs plain, both float64
+K8_F32_RTOL, K8_F32_ATOL = 2e-4, 2e-3  # float32 scores of two scorers
+                                     # (tests/test_mesh_pallas.py:71-72)
 F32_REL = 1e-4                       # float32 kernel vs float64 plain
 # maple_tpu's PipelinedPlacer (MAPLE_DEVICE_RT=1, default flags, float32
 # screens through its Pallas kernel in interpret mode on the CPU) on b3000:
@@ -174,16 +209,9 @@ def check(ok, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def smi():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
 def phase_environment(torch):
     from maple_tpu_torch.ops import _build
-    print(f"[env] {smi()}")
+    print(f"[env] {card()}")
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -214,22 +242,6 @@ def phase_build():
           f"load {time.perf_counter() - t0:.2f} s")
 
 
-def median_ms(torch, fn, reps, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 @contextlib.contextmanager
 def branch_env(**env):
     """The variables that select a branch: all unset, then ``env``."""
@@ -249,19 +261,15 @@ def no_foreign_modules():
     check(not loaded, f"loaded: {loaded}")
 
 
-def pair_bound(AP, Pstk, Cflat, prm, mm, rf):
-    """The least time the card could take for one pair-kernel call on
-    these inputs (module docstring): {"bound_ms", "bound_by"}, and the
-    count of contributing entry pairs."""
-    K, N = Cflat.shape[0], Pstk.shape[0]
-    pairs = AP.count_contributing_pairs(Pstk, Cflat)
-    nbytes = Pstk.element_size() * (Pstk.numel() + Cflat.numel()
-                                    + prm.numel() + mm.numel() + rf.numel()
-                                    + K * N)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = pairs * PAIR_FLOPS / F32_FLOPS
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}, pairs
+def pair_bound(Pstk, Cflat):
+    """The least time the card could take for one scorer call on these
+    stacked inputs (module docstring): {"bound_ms", "bound_by",
+    "layout_bound_ms"}, and the speed-of-light tool's work model they come
+    from.  lRef is the end of a full row's last entry."""
+    from maple_tpu_torch.ops.layout import F_END
+    work = work_model(Pstk, Cflat, int(Pstk[:, F_END].max().item()))
+    return {k: work[k] for k in ("bound_ms", "bound_by",
+                                 "layout_bound_ms")}, work
 
 
 def run_cli(torch, argv, **env):
@@ -305,8 +313,22 @@ def run_cli(torch, argv, **env):
 def phase_pipelined_path(torch):
     """The CLI on b3000, pipelined branch.  Returns (launches, the run it
     made)."""
-    wall, launches, lk, run = run_cli(torch, ["--devicePlacement"],
-                                      MAPLE_DEVICE_RT="1")
+    from maple_tpu_torch.parallel import pipelined_placer as PP
+    step, shapes = PP.fused_step, []
+
+    def keep_shapes(pool, valid, upd_idx, upd_rows, upd_valid, Cflat, *a,
+                    n_prefix, **kw):
+        shapes.append((upd_idx.shape[0], n_prefix, pool.shape[2],
+                       Cflat.shape[0], Cflat.shape[2] // 16, kw["topk"]))
+        return step(pool, valid, upd_idx, upd_rows, upd_valid, Cflat, *a,
+                    n_prefix=n_prefix, **kw)
+
+    PP.fused_step = keep_shapes
+    try:
+        wall, launches, lk, run = run_cli(torch, ["--devicePlacement"],
+                                          MAPLE_DEVICE_RT="1")
+    finally:
+        PP.fused_step = step
     check(launches > 0, "the pipelined path launched no pair kernel")
     check(run.pplacer is not None and run.proxy_placer is None,
           "MAPLE_DEVICE_RT=1 did not take the pipelined branch")
@@ -321,6 +343,16 @@ def phase_pipelined_path(torch):
           f"{t['placing']:.2f} s, topology {t['topology']:.2f} s; "
           f"final pool B1={pp.pool.budget} cap={pp.pool.capacity} "
           f"rows={len(pp.pool.row_of)} B2={pp.q_budget}")
+    # the fused steps' bound by bytes: the pool prefix, the changed rows
+    # (read, and written into the pool), the queries and the top-k out;
+    # the pair kernel inside is bound by bytes at these shapes (phase 4)
+    nbytes = sum(4 * (n * 16 * b1 + 2 * r * 16 * b1 + k * b2 * 16 + 4 * k
+                      + 20 + 2 * k * topk) + n + 9 * r
+                 for r, n, b1, k, b2, topk in shapes)
+    print(f"[main] {len(shapes)} fused steps, {sum(s[0] for s in shapes)} "
+          f"rows scattered in all: bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f}"
+          f" ms by bytes for all steps ({nbytes} bytes) beside "
+          f"{1e3 * pp.time_device:.1f} ms of device time")
     return launches, run
 
 
@@ -405,11 +437,11 @@ def phase_kernels(torch, run):
             max_abs32 = max(max_abs32, float(abs32.max()))
             check(rel64 <= F64_REL, f"float64 kernel rel err {rel64}")
             check(rel32 <= F32_REL, f"float32 kernel rel err {rel32}")
-            ms_k32 = median_ms(torch, lambda: AP.append_scores_prestacked(
+            ms_k32 = median_ms(lambda: AP.append_scores_prestacked(
                 *args32, uer=uer), reps=20)
-            ms_k64 = median_ms(torch, lambda: AP.append_scores_prestacked(
+            ms_k64 = median_ms(lambda: AP.append_scores_prestacked(
                 *args64, uer=uer), reps=10)
-            ms_p32 = median_ms(torch,
+            ms_p32 = median_ms(
                                lambda: AP.append_scores_prestacked_plain(
                                    *args32, uer=uer), reps=10, warmup=1)
             print(f"[kernel] uer={int(uer)} n_prefix={n_prefix}: "
@@ -418,11 +450,14 @@ def phase_kernels(torch, run):
                   f"{abs32.max():.3e}, -inf cells {int(inf.sum())}; "
                   f"kernel f32 {ms_k32:.4f} ms, kernel f64 {ms_k64:.4f} "
                   f"ms, plain f32 {ms_p32:.4f} ms (median, CUDA events)")
-            bound, pairs = pair_bound(AP, *args32)
+            bound, work = pair_bound(*args32[:2])
             print(f"[kernel] uer={int(uer)} n_prefix={n_prefix}: "
-                  f"{pairs} contributing pairs of "
+                  f"{work['contributing_pairs']} contributing pairs of "
                   f"{K_QUERIES * n_prefix * B1 * B2} in the grid; bound "
-                  f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}")
+                  f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
+                  f"({work['bytes']} bytes; the kernel's own layout moves "
+                  f"{work['layout_bytes']}: {bound['layout_bound_ms']:.5f} "
+                  f"ms)")
             report[(uer, n_prefix)] = {"ms": ms_k32, "plain_ms": ms_p32,
                                        **bound}
     return {"max_abs_err": max_abs32, **report[(False, PREFIXES[-1])],
@@ -747,10 +782,9 @@ def phase_screen_chunk(torch, captured):
     rel32 = float((abs32 / scale).max())
     check(rel64 <= F64_REL, f"screen chunk: float64 rel err {rel64}")
     check(rel32 <= F32_REL, f"screen chunk: float32 rel err {rel32}")
-    ms = median_ms(torch, lambda: kernel(*f32), reps=20)
-    plain_ms = median_ms(torch, lambda: plain(*f32), reps=5, warmup=1)
-    bound, _ = pair_bound(AP, pool[:n_prefix].contiguous(), Cflat, prm, mm,
-                          rf)
+    ms = median_ms(lambda: kernel(*f32), reps=20)
+    plain_ms = median_ms(lambda: plain(*f32), reps=5, warmup=1)
+    bound, _ = pair_bound(pool[:n_prefix].contiguous(), Cflat)
     print(f"[chunk] K={Cflat.shape[0]} queries, n_prefix {n_prefix}, "
           f"B1={pool.shape[-1]}, B2={Cflat.shape[-1] // 16}, uer={int(uer)}: "
           f"top-1 f64 rel err {rel64:.3e} (<= {F64_REL}), f32 rel err "
@@ -818,7 +852,7 @@ def time_product(torch, K, D, cap):
     g = torch.Generator(device=dev).manual_seed(5)
     QF = torch.rand((K, D), generator=g, device=dev)
     AF = torch.rand((cap, D), generator=g, device=dev)
-    ms = median_ms(torch, lambda: QF @ AF.T, reps=10)
+    ms = median_ms(lambda: QF @ AF.T, reps=10)
     t_ops = 2 * K * D * cap / F32_FLOPS
     t_bytes = 4 * (K * D + cap * D + K * cap) / HBM_BYTES_PER_S
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1004,21 +1038,389 @@ def phase_legacy(torch, b3000):
     same_inf_and_close(ref, k64, F64_REL, "legacy launch, float64 kernel")
     worst = same_inf_and_close(ref, k32, F32_REL,
                                "legacy launch, float32 kernel")
-    ms = median_ms(torch, lambda: AP.append_scores_prestacked(
+    ms = median_ms(lambda: AP.append_scores_prestacked(
         *args32, uer=uer), reps=20)
-    plain_ms = median_ms(torch, lambda: AP.append_scores_prestacked_plain(
+    plain_ms = median_ms(lambda: AP.append_scores_prestacked_plain(
         *args32, uer=uer), reps=5, warmup=1)
-    bound, pairs = pair_bound(AP, *args32)
     Pstk, Cflat = args32[:2]
+    bound, work = pair_bound(Pstk, Cflat)
     print(f"[legacy] last launch K={Cflat.shape[0]} N={Pstk.shape[0]} "
           f"B1={Pstk.shape[2]} B2={Cflat.shape[2] // 16} uer={int(uer)}: "
           f"f32 max abs err {worst:.3e} (<= {F32_REL} relative); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA events); "
-          f"{pairs} contributing pairs, bound {bound['bound_ms']:.5f} ms by "
-          f"{bound['bound_by']}")
+          f"{work['contributing_pairs']} contributing pairs, bound "
+          f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} (the kernel's "
+          f"own layout: {bound['layout_bound_ms']:.5f} ms)")
+    stage = {"lk": lk, "minors": run.stats.num_minors_found,
+             "final_lk": final_lk}
     return launches, run_label(argv, **env), {
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound,
-        "library_ms": None}
+        "library_ms": None}, (args32, uer), stage
+
+
+def k8_inputs(torch, args32):
+    """The stacked inputs of a pair-kernel launch as the interval-algebra
+    scorer's operands: views of the pool rows and of the queries, the
+    branch length, and a DeviceModel with the same matrix and scalars
+    (site rates 1, no error model, as that launch had)."""
+    from maple_tpu_torch.ops import append_batch as AB
+    from maple_tpu_torch.ops.layout import NFIELDS, fields_view
+    Pstk, Cflat, prm, mm, rf = args32
+    lRef = int(Pstk[0, 11].max().item())      # F_END of a full row
+    one = torch.ones(lRef, dtype=Pstk.dtype, device=Pstk.device)
+    dm = AB.DeviceModel(mm.reshape(4, 4), rf.reshape(4), one,
+                        torch.zeros_like(one), prm[0, 0, 2], prm[0, 0, 3],
+                        False, False)
+    P = fields_view(Pstk, -2)
+    C = fields_view(Cflat.reshape(Cflat.shape[0], -1, NFIELDS), -1)
+    return P, C, float(prm[0, 0, 0]), dm, lRef
+
+
+def phase_interval_algebra(torch, last):
+    """Phase 13."""
+    from maple_tpu_torch.ops import append_batch as AB
+    from maple_tpu_torch.ops import append_pairs as AP
+    args32, uer = last
+    check(not uer, "phase 13 expects the legacy run without an error model")
+    args64 = tuple(a.double() for a in args32)
+    P32, C32, blen, dm32, lRef = k8_inputs(torch, args32)
+    P64, C64, _, dm64, _ = k8_inputs(torch, args64)
+    k8_32 = AB.grid_append_scores(P32, C32, blen, True, dm32)
+    k8_64 = AB.grid_append_scores(P64, C64, blen, True, dm64)
+    k1_32 = AP.append_scores_prestacked(*args32, uer=False)
+    k1_64 = AP.append_scores_prestacked(*args64, uer=False)
+    torch.cuda.synchronize()
+    check(k8_32.device.type == "cuda", "the scorer left the card")
+    k8_32, k8_64, k1_32, k1_64 = (x.double().cpu().numpy() for x in
+                                  (k8_32, k8_64, k1_32, k1_64))
+    worst64 = same_inf_and_close(k1_64, k8_64, F64_REL,
+                                 "interval algebra vs pair kernel, float64")
+    inf = np.isneginf(k1_32)
+    check(np.array_equal(inf, np.isneginf(k8_32)),
+          "interval algebra vs pair kernel, float32: -inf cells differ")
+    check(np.allclose(k8_32[~inf], k1_32[~inf], rtol=K8_F32_RTOL,
+                      atol=K8_F32_ATOL),
+          "interval algebra vs pair kernel, float32: outside tolerance")
+    worst32 = float(np.abs(k8_32[~inf] - k1_32[~inf]).max())
+    # the same scorer on the CPU, float64, the first 8 queries
+    cpu = torch.device("cpu")
+    n_q = min(8, C64["types"].shape[0])
+    on_cpu = AB.grid_append_scores(
+        {k: v.to(cpu) for k, v in P64.items()},
+        {k: v[:n_q].to(cpu) for k, v in C64.items()}, blen, True,
+        dm64._replace(**{n: getattr(dm64, n).to(cpu) for n in (
+            "mut_matrix", "root_freqs", "site_rates", "error_rates",
+            "global_tot_rate", "tot_error")})).numpy()
+    worst_cpu = same_inf_and_close(on_cpu, k8_64[:n_q], F64_REL,
+                                   "interval algebra, card vs CPU, float64")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms = median_ms(lambda: AB.grid_append_scores(
+        P32, C32, blen, True, dm32), reps=10)
+    peak = torch.cuda.max_memory_allocated() - before
+    k1_ms = median_ms(lambda: AP.append_scores_prestacked(
+        *args32, uer=False), reps=10)
+    Pstk, Cflat = args32[:2]
+    K, N, B1, B2 = Cflat.shape[0], Pstk.shape[0], Pstk.shape[2], \
+        Cflat.shape[2] // 16
+    bound, work = pair_bound(Pstk, Cflat)
+    print(f"[k8] K={K} N={N} B1={B1} B2={B2} (phase 12's last batch): "
+          f"float64 against the pair kernel max abs {worst64:.3e} (<= "
+          f"{F64_REL} relative), against the CPU max abs {worst_cpu:.3e}; "
+          f"float32 against the pair kernel max abs {worst32:.3e} (rtol "
+          f"{K8_F32_RTOL}, atol {K8_F32_ATOL}), -inf cells {int(inf.sum())}")
+    print(f"[k8] interval algebra f32 {ms:.4f} ms, pair kernel f32 "
+          f"{k1_ms:.4f} ms (median of 10, CUDA events); "
+          f"{work['contributing_pairs']} contributing pairs, "
+          f"{K * N * (B1 + B2)} segment elements in "
+          f"{-(-K * N * (B1 + B2) // AB._BLOCK_ELEMS)} blocks; bound "
+          f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
+          f"({work['bytes']} bytes, the pair kernel's bound on these inputs "
+          f"too); peak memory above the inputs "
+          f"{peak / 2**20:.1f} MiB")
+    return {"ms": ms, "pair_kernel_ms": k1_ms, "max_abs_err": worst32,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None, "peak_memory_bytes": int(peak),
+            "shape": {"K": K, "N": N, "B1": B1, "B2": B2}}
+
+
+def phase_legacy_default_scorer(torch, b3000, pallas_stage):
+    """Phase 14.  Returns the run's label and the count of scorer
+    calls."""
+    import maple_tpu_torch.parallel.batch_placement as BP
+    env = {"MAPLE_DEVICE_LEGACY": "1"}
+    run, lk, _ = device_placement(torch, SUB80, 16, 16, env=env,
+                                  model="GTR")
+    ser, ser_lk = serial_placement(torch, SUB80, model="GTR")
+    pl = run.legacy_placer
+    check(pl is not None and not pl.use_pallas and pl.dm is not None,
+          "sub80: not the legacy placer on the interval-algebra scorer")
+    print(f"[legacy-k8] sub80 placed {placed_count(run)} (serial "
+          f"{placed_count(ser)}); minors {run.stats.num_minors_found} "
+          f"(serial {ser.stats.num_minors_found}); LK {lk} (serial {ser_lk}, "
+          f"delta {lk - ser_lk:.3e}); model on {pl.dm.mut_matrix.device}")
+    check(placed_count(run) == placed_count(ser) == 80,
+          "sub80 legacy-k8: samples not all placed")
+    check(run.stats.num_minors_found == ser.stats.num_minors_found,
+          "sub80 legacy-k8: minor counts differ")
+    check(abs(lk - ser_lk) <= PLACEMENT_LK_TOL,
+          f"sub80 legacy-k8: LK differs from serial by {lk - ser_lk}")
+
+    scorer, calls = BP.grid_append_scores, []
+
+    def counted(P, C, blen, tip, dm):
+        check(P["types"].device.type == "cuda", "the scorer left the card")
+        calls.append((C["types"].shape[0], P["types"].shape[0]))
+        return scorer(P, C, blen, tip, dm)
+
+    BP.grid_append_scores = counted
+    argv = ["--devicePlacement"]
+    try:
+        wall, launches, final_lk, run = run_cli(torch, argv, **env)
+    finally:
+        BP.grid_append_scores = scorer
+    pl = run.legacy_placer
+    check(pl is not None and run.pplacer is None
+          and run.proxy_placer is None, "b3000: not the legacy branch")
+    check(not pl.use_pallas, "b3000: the legacy placer took the pair kernel")
+    check(launches == 0, f"the run launched the pair kernel {launches} times")
+    check(calls, "the legacy placer never called the interval-algebra "
+          "scorer")
+    check(placed_count(run) == N_SAMPLES, "b3000 legacy-k8: not all placed")
+    t = run.timings
+    print(f"[legacy-k8] b3000 end to end {wall:.2f} s, final LK {final_lk} "
+          f"(--devicePallas run {pallas_stage['final_lk']}); "
+          f"{len(calls)} scorer calls (largest K x N "
+          f"{max(calls, key=lambda c: c[0] * c[1])}), pair kernel launches "
+          f"{launches}; placement finding {t['finding']:.2f} s (scoring "
+          f"{pl.time_scoring:.2f} s, fine {pl.time_fine:.2f} s), placing "
+          f"{t['placing']:.2f} s, topology {t['topology']:.2f} s")
+    run, lk, wall = device_placement(torch, B3000, env=env)
+    print(f"[legacy-k8] b3000 placement stage {wall:.2f} s "
+          f"({N_SAMPLES / wall:.2f} seq/s): LK {lk}, minors "
+          f"{run.stats.num_minors_found}; --devicePallas run LK "
+          f"{pallas_stage['lk']}, minors {pallas_stage['minors']}; serial "
+          f"LK {b3000['serial_lk']}, minors {b3000['serial_minors']}")
+    check(placed_count(run) == N_SAMPLES and np.isfinite(lk),
+          "b3000 legacy-k8 placement: not all placed or LK not finite")
+    return run_label(argv, **env), len(calls)
+
+
+def mesh_tiles(torch, mesh, pool_g, q_g, blen, dm, what):
+    """One call of each mesh placement scorer on these operands (the pool
+    laid out over ``cand``, the queries over ``dp``) against the
+    single-device scorer on the same tensors: bit for bit.  Then the call
+    as the placer makes it (tile, gather, host copy), timed beside its
+    bound: the function's bytes and operations, and for the gather the
+    tile read, the matrix written and read once more."""
+    from maple_tpu_torch.ops import append_batch as AB
+    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.ops.layout import NFIELDS, fields_view
+    from maple_tpu_torch.parallel import mesh as TM
+    Pstk, Cflat = pool_g.local, q_g.local
+    K, N = Cflat.shape[0], Pstk.shape[0]
+    dm = TM.replicate_model(mesh, dm)
+    prm = torch.stack([torch.full_like(dm.global_tot_rate, blen),
+                       torch.ones_like(dm.global_tot_rate),
+                       dm.global_tot_rate, dm.tot_error]) \
+        .expand(K, 1, 4).contiguous()
+    n0 = AP.append_scores_prestacked.launches
+    tile_k1 = TM.placement_scores_pallas(mesh, pool_g, q_g, blen, dm)
+    one_k1 = AP.append_scores_prestacked(
+        Pstk, Cflat, prm, dm.mut_matrix.reshape(1, 1, 16).contiguous(),
+        dm.root_freqs.reshape(1, 1, 4).contiguous(),
+        uer=dm.using_error_rate)
+    check(AP.append_scores_prestacked.launches == n0 + 2,
+          "the mesh tile did not launch the pair kernel")
+    tile_k8 = TM.placement_scores(mesh, pool_g, q_g, blen, dm)
+    one_k8 = AB.grid_append_scores(
+        fields_view(Pstk, -2),
+        fields_view(Cflat.reshape(K, -1, NFIELDS), -1), blen, True, dm)
+    torch.cuda.synchronize()
+    for name, tile, one in (("placement_scores_pallas", tile_k1, one_k1),
+                            ("placement_scores", tile_k8, one_k8)):
+        full = TM.host_fetch(tile)
+        check(tile.local.device.type == "cuda" and full.shape == (K, N)
+              and np.array_equal(full, one.cpu().numpy(), equal_nan=True)
+              and np.array_equal(full, tile.local.cpu().numpy(),
+                                 equal_nan=True),
+              f"{name}, {what}: the tile differs from the single-device "
+              f"scorer")
+    print(f"[mesh] {what}: placement_scores_pallas and placement_scores "
+          f"tiles ({K}, {N}) equal the single-device scorers bit for bit")
+    _, work = pair_bound(Pstk, Cflat)
+    out = {}
+    for name, scorer in (
+            ("placement_scores_pallas", TM.placement_scores_pallas),
+            ("placement_scores", TM.placement_scores)):
+        ms = median_ms(lambda: TM.host_fetch(
+            scorer(mesh, pool_g, q_g, blen, dm)), reps=10)
+        t_b = (work["bytes"] + 3 * 4 * K * N) / HBM_BYTES_PER_S
+        t_o = work["operations"] / F32_FLOPS
+        out[name] = {"ms": ms, "bound_ms": 1e3 * max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "library_ms": None, "shape": {"K": K, "N": N}}
+        print(f"[mesh] {name} + host_fetch, tile ({K}, {N}): {ms:.4f} ms "
+              f"(median of 10, CUDA events); bound "
+              f"{out[name]['bound_ms']:.5f} ms by {out[name]['bound_by']}")
+    return out
+
+
+def phase_mesh(torch, last, pallas_stage):
+    """Phase 15.  Returns the pair kernel's launches of the mesh run, the
+    count of mesh scorer calls, and the time of one mesh call of each
+    placement scorer beside its bound, at the mesh run's own shape and at
+    phase 12's."""
+    import torch.distributed as dist
+    from maple_tpu_torch import dryrun
+    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.parallel import mesh as TM
+    from maple_tpu_torch.parallel import batch_spr as BS
+    from maple_tpu_torch.parallel.ranks import free_port, init_group
+    dev = init_group("nccl", 0, 1, free_port(), timeout=600.0)
+    try:
+        mesh = TM.make_mesh(device=dev)
+        check(dist.get_backend(mesh.group) == "nccl" and mesh.size == 1
+              and mesh.shape == {"dp": 1, "cand": 1},
+              f"not a 1 x 1 NCCL mesh: {mesh.shape}")
+        calls = {"placement_scores_pallas": 0, "spr_screen_scores": 0,
+                 "host_fetch": 0}
+        saved = {name: getattr(TM, name) for name in calls}
+        own = []     # the operands of the run's last placement call
+
+        def counting(name):
+            def call(*a, **kw):
+                calls[name] += 1
+                if name == "placement_scores_pallas":
+                    own[:] = [a[1:]]
+                return saved[name](*a, **kw)
+            return call
+
+        for name in calls:
+            setattr(TM, name, counting(name))
+        BS.stats.reset()
+        AP.append_scores_prestacked.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with branch_env():
+                out = dryrun.dryrun_multichip(
+                    mesh, input=B3000, use_pallas=True, warmup=256,
+                    batch_size=64, reference_lk=pallas_stage["lk"])
+            torch.cuda.synchronize()
+        finally:
+            for name, fn in saved.items():
+                setattr(TM, name, fn)
+        wall = time.perf_counter() - t0
+        launches = AP.append_scores_prestacked.launches
+        (st,) = BS.stats.passes
+        check(launches > 0 and launches == out["launches"]
+              == calls["placement_scores_pallas"],
+              f"mesh placement: {launches} launches, "
+              f"{calls['placement_scores_pallas']} scorer calls")
+        check(st.branch == "mesh" and st.chunks
+              == calls["spr_screen_scores"] > 0,
+              "the mesh SPR screen did not run on spr_screen_scores")
+        check(calls["host_fetch"] >= launches + st.chunks,
+              "a tile was read without the gather")
+        check(out["placed"] == N_SAMPLES, "mesh: samples not all placed")
+        check(out["genome_max_abs_diff"] <= 1e-4, "mesh: genome scorer")
+        print(f"[mesh] 1 x 1 mesh over a 1-rank NCCL group on {dev}: "
+              f"dryrun_multichip on b3000 in {wall:.2f} s; placement LK "
+              f"{out['lk_placement']}, held within {dryrun.PLACEMENT_TOL} of "
+              f"the single-device --devicePallas placement's "
+              f"{pallas_stage['lk']} (delta "
+              f"{out['lk_placement'] - pallas_stage['lk']:.3e}; serial "
+              f"{out['lk_serial']}), minors {out['minors']} (single-device "
+              f"{pallas_stage['minors']}, serial {out['minors_serial']}); "
+              f"{launches} pair-kernel launches in "
+              f"{calls['placement_scores_pallas']} mesh scorer calls; SPR "
+              f"pass {st.queries} queries x {st.anchors} anchors in "
+              f"{st.chunks} chunks (interval algebra), {st.proposals} "
+              f"proposals, LK {out['lk_spr']}; genome mesh "
+              f"{out['genome_mesh']} max |d| "
+              f"{out['genome_max_abs_diff']:.3e}; {calls['host_fetch']} "
+              f"gathers")
+        print(f"[mesh] SPR pass host collect {st.collect_s:.3f} s, score "
+              f"{st.pack_s:.3f} s, decide {st.decide_s:.3f} s, apply "
+              f"{st.apply_s:.3f} s")
+        # the run's own last placement call (a chunk of queries against
+        # the whole pool), then phase 12's last batch
+        (pool_g, q_g, blen, dm), = own
+        tiles = {"mesh_run": mesh_tiles(torch, mesh, pool_g, q_g, blen, dm,
+                                        "the mesh run's last call")}
+        Pstk, Cflat = last[0][:2]
+        _, _, blen, dm, _ = k8_inputs(torch, last[0])
+        tiles["legacy_batch"] = mesh_tiles(
+            torch, mesh, TM.put_global(mesh, Pstk, ("cand",)),
+            TM.put_global(mesh, Cflat, ("dp",)), blen, dm,
+            "phase 12's last batch")
+    finally:
+        dist.destroy_process_group()
+    return launches, sum(calls.values()) - calls["host_fetch"], tiles
+
+
+def phase_speed_of_light(torch):
+    """Phase 16."""
+    from maple_tpu_torch.tools import speed_of_light as SOL
+    rows = SOL.run_config(8192, 64, 64, 64, 5, torch.device("cuda", 0))
+    check(len(rows) == 2 and all(np.isfinite(r["ms"]) and r["ms"] > 0
+                                 for r in rows), "speed_of_light: no rows")
+    return rows
+
+
+def phase_torch_op_bounds(torch):
+    """The device functions that are torch ops, at the shapes the b3000
+    runs give them, on seeded tensors: time (median, CUDA events) beside
+    the bound (the larger of bytes over the memory rate and operations
+    over the float32 rate).  ``scatter_only`` and ``spr_screen_step`` at
+    the proxy SPR pass's shapes (2,602 anchor rows of 192 features into a
+    4,096 x 8,192 float32 pool; chunks of 256 queries of 64 features,
+    top-128), the legacy pool's row scatter (``index_copy_`` of 64 stacked
+    rows, B1 128, into 8,192 rows)."""
+    from maple_tpu_torch.parallel import batch_spr as BS
+    from maple_tpu_torch.parallel.proxy_features import D, scatter_only
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def ints(shape, high):
+        return torch.randint(0, high, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def report(name, ms, nbytes, flops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        print(f"[bounds] {name}: {ms:.4f} ms (median, CUDA events); bound "
+              f"{1e3 * max(t_b, t_o):.5f} ms by "
+              f"{'bytes' if t_b >= t_o else 'operations'} ({nbytes} bytes, "
+              f"{flops:.3e} operations)")
+
+    cap, R, Fa, K, Fq, topm = 4096, 2602, 192, 256, 64, 128
+    AF = torch.zeros((cap, D), device=dev)
+    valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+    rows = torch.arange(R, device=dev, dtype=torch.int32)
+    fidx, fw = ints((R, Fa), D), torch.rand((R, Fa), generator=g, device=dev)
+    ok = torch.ones(R, dtype=torch.bool, device=dev)
+    ms = median_ms(lambda: scatter_only(AF, valid, rows, fidx, fw, ok),
+                   reps=10)
+    report(f"scatter_only, {R} rows x {Fa} features into [{cap}, {D}] f32",
+           ms, R * (Fa * 8 + D * 4 + 5 + 1), R * Fa)
+    a_tin = ints((cap,), cap)
+    q_fidx, q_fw = ints((K, Fq), D), torch.rand((K, Fq), generator=g,
+                                                device=dev)
+    q_lo = ints((K,), cap)
+    excl = ints((K, 2), cap)
+    ms = median_ms(lambda: BS.spr_screen_step(
+        AF, valid, a_tin, q_fidx, q_fw, q_lo, q_lo + 8, excl, topm=topm),
+        reps=10)
+    report(f"spr_screen_step, [{K}, {D}] x [{D}, {cap}] f32, top-{topm}", ms,
+           cap * (4 * D + 1 + 4) + K * (Fq * 8 + 16 + topm * 12),
+           2.0 * K * D * cap)
+    R, B1 = 64, 128
+    pool = torch.zeros((8192, 16, B1), device=dev)
+    idx = torch.arange(0, 2 * R, 2, device=dev)
+    new = torch.rand((R, 16, B1), generator=g, device=dev)
+    ms = median_ms(lambda: pool.index_copy_(0, idx, new), reps=20)
+    report(f"legacy pool row scatter, index_copy_ of {R} rows [16, {B1}] f32",
+           ms, R * (2 * 16 * B1 * 4 + 8), 0.0)
 
 
 def phase_profile_spr(torch):
@@ -1064,23 +1466,6 @@ def phase_profile_spr(torch):
                   f"{gemm_us / 1e3:.3f} ms of GEMM kernels)")
 
 
-def placed_count(run):
-    tree = run.tree
-
-    def reachable(node):
-        for _ in range(len(tree.up) + 1):
-            if node == run.root:
-                return True
-            node = tree.up[node]
-            if node is None:
-                return False
-        return False
-
-    live = [n for n in range(len(tree.up)) if reachable(n)]
-    return sum(1 for n in live if not tree.children[n]) + \
-        sum(len(tree.minorSequences[n]) for n in live)
-
-
 def main(argv):
     import torch
     if argv not in ([], ["--profile-spr"]):
@@ -1105,13 +1490,23 @@ def main(argv):
     phase_proxy_main_path(torch)
     phase_proxy_parity(torch)
     phase_proxy_20k(torch)
-    legacy_launches, legacy_label, legacy = phase_legacy(torch, b3000)
+    legacy_launches, legacy_label, legacy, last, pallas_stage = \
+        phase_legacy(torch, b3000)
+    k8 = phase_interval_algebra(torch, last)
+    k8_label, k8["calls_legacy_run"] = phase_legacy_default_scorer(
+        torch, b3000, pallas_stage)
+    mesh_launches, k8["mesh_scorer_calls"], tiles = phase_mesh(
+        torch, last, pallas_stage)
+    del last
+    sol = phase_speed_of_light(torch)
+    phase_torch_op_bounds(torch)
     # every count below is of one run, reset just before it
     by_path["legacy"] = legacy_launches
+    by_path["mesh"] = mesh_launches
     check(all(n > 0 for n in by_path.values()),
           f"a path launched no pair kernel: {by_path}")
     runs = {run_label(["--devicePlacement"], MAPLE_DEVICE_RT="1"): launches,
-            **runs, legacy_label: legacy_launches}
+            **runs, legacy_label: legacy_launches, k8_label: 0}
     no_foreign_modules()
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -1120,8 +1515,10 @@ def main(argv):
         "replaces": "maple_tpu/ops/pallas_append.py:349",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "launches_by_run": runs, **kern, "spr_screen_chunk": chunk,
-        "legacy_batch": legacy}]}))
-    print(smi())
+        "legacy_batch": legacy, "interval_algebra": k8,
+        "mesh_tiles": tiles,
+        "speed_of_light": sol}]}))
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

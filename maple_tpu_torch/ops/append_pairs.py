@@ -13,14 +13,11 @@ On a CUDA tensor :func:`append_scores_prestacked` launches the kernel in
 """
 from __future__ import annotations
 
-from types import SimpleNamespace
-
 import torch
 
 from . import _build
 from .layout import (F_BL1, F_BL2, F_END, F_EPS, F_FLAG, F_HAS1, F_HAS2,
-                     F_P0, F_PREV, F_RATE, F_TYPE, F_VAL, NFIELDS,
-                     stack_fields_host)
+                     F_P0, F_PREV, F_RATE, F_TYPE, F_VAL, NFIELDS)
 from .pack import TYPE_N, TYPE_O, TYPE_PAD, TYPE_R
 
 # The plain version finds the contributing pairs on [k, N, B1] planes for
@@ -302,25 +299,34 @@ def _pair_log_factors(p, c, prm, mm, rfl, *, uer: bool):
 
 # ----------------------------------------------------------------------
 # packed-dict entry points (twins of pallas_grid_append_scores{,_var} and
-# pallas_batched_append_scores).  They stack both dicts on the host for
-# every call: for tests and one-off scoring; a placer keeps its pool
-# stacked on the device and calls append_scores_prestacked.
+# pallas_batched_append_scores).  They stack both dicts for every call:
+# for tests and one-off scoring; a placer keeps its pool stacked on the
+# device and calls append_scores_prestacked.
+
+def stack_fields(X: dict, site_rates, error_rates, axis: int):
+    """A packed field dict of tensors in the kernel's NFIELDS layout, on
+    the tables' device and in their float type: the torch form of
+    ``stack_fields_host`` (``axis=-2`` candidates ``[N, F, B]``,
+    ``axis=-1`` queries ``[..., B, F]``)."""
+    dtype, device = site_rates.dtype, site_rates.device
+    ends = X["ends"].to(device=device, dtype=torch.long)
+    pos = (ends - 1).clamp_(min=0)
+    prev = torch.cat([torch.zeros_like(ends[..., :1]), ends[..., :-1]],
+                     dim=-1)
+    probs = X["probs"]
+    fields = [X["types"], X["vals"], X["bl1"], X["bl2"], X["has_bl1"],
+              X["has_bl2"], X["flags"], probs[..., 0], probs[..., 1],
+              probs[..., 2], probs[..., 3], ends, prev, site_rates[pos],
+              error_rates[pos], torch.zeros_like(ends)]
+    return torch.stack([f.to(device=device, dtype=dtype) for f in fields],
+                       dim=axis)
+
 
 def _grid_scores(P: dict, C: dict, blen, tip, dm):
     dtype = dm.mut_matrix.dtype
     device = dm.mut_matrix.device
-    site_rates = dm.site_rates.cpu().numpy()
-    error_rates = dm.error_rates.cpu().numpy()
-
-    def stacked(X: dict, axis: int) -> torch.Tensor:
-        # the packed dict's fields in the kernel layout (stacked on host)
-        host = SimpleNamespace(**{k: v.cpu().numpy() for k, v in X.items()})
-        return torch.as_tensor(stack_fields_host(
-            host, site_rates, error_rates, axis=axis,
-            dtype=site_rates.dtype), device=device)
-
-    Pstk = stacked(P, -2)
-    Cstk = stacked(C, -1)
+    Pstk = stack_fields(P, dm.site_rates, dm.error_rates, -2)
+    Cstk = stack_fields(C, dm.site_rates, dm.error_rates, -1)
     if Cstk.dim() == 2:
         Cstk = Cstk[None]
     K, B2, _ = Cstk.shape

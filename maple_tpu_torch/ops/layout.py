@@ -42,3 +42,25 @@ def stack_fields_host(p, site_rates, error_rates, axis, dtype=None):
     ]
     return np.stack([np.asarray(f, dtype=dtype) for f in fields],
                     axis=axis)
+
+
+def fields_view(stk, axis: int) -> dict:
+    """The nine named fields of a packed dict as views of a stacked entry
+    tensor (no copy): ``axis=-2`` for candidates stacked ``[..., F, B]``,
+    ``axis=-1`` for queries stacked ``[..., B, F]``.  Every field comes in
+    the stacked tensor's float type (entry types, positions and flags
+    too); the interval-algebra scorer casts them itself."""
+    if axis == -2:
+        def field(f):
+            return stk[..., f, :]
+        probs = stk[..., F_P0:F_P3 + 1, :].swapaxes(-1, -2)
+    elif axis == -1:
+        def field(f):
+            return stk[..., f]
+        probs = stk[..., F_P0:F_P3 + 1]
+    else:
+        raise ValueError(f"fields_view: axis {axis} (want -2 or -1)")
+    return {"types": field(F_TYPE), "ends": field(F_END),
+            "vals": field(F_VAL), "bl1": field(F_BL1), "bl2": field(F_BL2),
+            "has_bl1": field(F_HAS1), "has_bl2": field(F_HAS2),
+            "flags": field(F_FLAG), "probs": probs}

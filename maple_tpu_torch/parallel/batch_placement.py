@@ -10,8 +10,10 @@ processed in batches:
    kept on the device, in the pair kernel's stacked layout
    (:class:`DeviceTreePool`),
 2. a whole batch of queries is scored against the active prefix of the pool
-   by one launch of the appendProbNode pair kernel
-   (``csrc/append_pairs.cu``), an exact argmax over a superset of the nodes
+   in one call: by the interval-algebra scorer
+   (:mod:`maple_tpu_torch.ops.append_batch`, the default) or, with
+   ``--devicePallas``, by one launch of the appendProbNode pair kernel
+   (``csrc/append_pairs.cu``); an exact argmax over a superset of the nodes
    the reference's stop-rule DFS would visit,
 3. the top candidates per query get the reference's exact host fine phase
    (3-way branch-length optimization in float64) and the placement is
@@ -26,10 +28,10 @@ stale score can never crowd genuine candidates out of the fine phase.  The
 caller keeps the serial model-refresh cadence (batches never cross an
 updateSubstMatrixEveryThisSamples boundary).
 
-The JAX package's legacy placer scores with its interval-algebra scorer
-unless ``--devicePallas`` asks for the pair kernel; that scorer is not
-ported, so this placer always scores with the pair kernel and the pipeline
-raises for the other combination.
+With a ``mesh`` (:mod:`maple_tpu_torch.parallel.mesh`) the pool is sharded
+over the ``cand`` axis and each query chunk over ``dp``; every rank runs
+this same placer on the same tree, scores its tile and gathers the whole
+score matrix, so the host phase decides the same on every rank.
 """
 from __future__ import annotations
 
@@ -40,8 +42,9 @@ import numpy as np
 import torch
 
 from ..ops import pack as OP
+from ..ops.append_batch import device_model_from, grid_append_scores
 from ..ops.append_pairs import append_scores_prestacked
-from ..ops.layout import NFIELDS, stack_fields_host
+from ..ops.layout import NFIELDS, fields_view, stack_fields_host
 from ..search.placement import (find_best_parent_for_new_sample,
                                 place_sample_on_tree)
 from .stacked_pool import StackedRows, upload
@@ -54,11 +57,17 @@ class DeviceTreePool(StackedRows):
     Rows are persistent between refreshes: an anchor keeps its row, new
     anchors append, and ineligible anchors are masked host-side rather than
     compacted, so an ``update`` scatters only the changed rows
-    (``index_copy_``) where a ``refresh`` repacks and re-uploads all."""
+    (``index_copy_``) where a ``refresh`` repacks and re-uploads all.
+
+    With a ``mesh`` the stacked rows are sharded over its ``cand`` axis at
+    every refresh (``dev_pool`` is then a ``GlobalArray``: this rank's
+    slice of the tree's anchors), and ``update`` always asks for a full
+    refresh."""
 
     def __init__(self, rt, device: torch.device, n_pad_hint: int = 0,
-                 dtype=np.float32):
+                 dtype=np.float32, mesh=None):
         super().__init__(rt, device, dtype)
+        self.mesh = mesh
         self.budget = 64
         # a caller that knows how many samples the run will place sizes
         # the pool for all of them up front
@@ -84,7 +93,11 @@ class DeviceTreePool(StackedRows):
             n_pad *= 2
         rows = np.zeros((n_pad, NFIELDS, self.budget), dtype=self.dtype)
         rows[:n] = self._pack_rows(vecs)
-        self.dev_pool = upload(rows, self.device)
+        if self.mesh is not None:
+            from .mesh import put_global
+            self.dev_pool = put_global(self.mesh, rows, ("cand",))
+        else:
+            self.dev_pool = upload(rows, self.device)
         self.capacity = n_pad
         self.row_of = {node: i for i, node in enumerate(anchors)}
         self.node_at = anchors + [-1] * (n_pad - n)
@@ -95,9 +108,10 @@ class DeviceTreePool(StackedRows):
     def update(self, changed) -> bool:
         """Incremental refresh: re-export only ``changed`` nodes and
         scatter their rows into the device-resident pool.  Returns False
-        when a full refresh is required instead (first build, entry-budget
-        growth, or capacity exhausted)."""
-        if self.dev_pool is None or not self.capacity:
+        when a full refresh is required instead (first build, mesh
+        sharding, entry-budget growth, or capacity exhausted)."""
+        if self.dev_pool is None or self.mesh is not None \
+                or not self.capacity:
             return False
         idx = []
         vecs = []
@@ -141,28 +155,41 @@ class BatchedPlacer:
     reuses."""
 
     def __init__(self, rt, stats, device: torch.device,
-                 batch_size: int = 64, expected_samples: int = 0):
+                 batch_size: int = 64, query_chunk: int = 16, mesh=None,
+                 use_pallas: bool = False, expected_samples: int = 0):
         self.rt = rt
         self.stats = stats
         self.device = device
         self.batch_size = batch_size
+        self.mesh = mesh
+        self.use_pallas = use_pallas
+        if mesh is not None:
+            # query chunks shard over dp: keep them divisible by the axis
+            dp = mesh.shape["dp"]
+            query_chunk = max(query_chunk, dp)
+            query_chunk += (-query_chunk) % dp
+        self.query_chunk = query_chunk    # a mesh scores in such chunks
         # a de-novo run on K samples ends with < 2K anchors (leaves +
         # internals, minus collapsed minors and 0-length nodes)
-        self.pool = DeviceTreePool(rt, device,
+        self.pool = DeviceTreePool(rt, device, mesh=mesh,
                                    n_pad_hint=2 * expected_samples)
         # Cross-batch pool retention: nodes created/touched since the last
         # pool sync (their stale pool scores are masked out of every
         # screen and re-scored fresh on host, the same exactness machinery
         # as within-batch staleness).  They are host-rescored for EVERY
         # query until the next sync, and the incremental row scatter is
-        # cheap, so the pool syncs early and often.
+        # cheap, so the single-device pool syncs early and often; a mesh
+        # repacks and re-uploads the whole pool per sync and keeps the
+        # high threshold.
         self.recent: List[int] = []
         self.recent_set = set()
-        self.refresh_threshold = 48
+        self.refresh_threshold = 768 if mesh is not None else 48
         self.q_budget = 256
         self.mm_dev = None
         self.rf_dev = None
         self.mm_version = -1
+        self.dm = None
+        self.dm_version = -1
         self.time_scoring = 0.0   # host seconds in (or blocked on) screens
         self.time_fine = 0.0
         self.time_apply = 0.0
@@ -180,6 +207,39 @@ class BatchedPlacer:
             self.rf_dev = upload(rf, self.device)
             self.mm_version = model.version
         return self.mm_dev, self.rf_dev
+
+    def _device_model(self):
+        """The float32 DeviceModel of the interval-algebra and mesh
+        scorers, made again when the model's version moves."""
+        if self.dm is None or self.dm_version != self.rt.model.version:
+            self.dm = device_model_from(self.rt.model, self.rt.dc,
+                                        device=self.device,
+                                        dtype=torch.float32)
+            self.dm_version = self.rt.model.version
+        return self.dm
+
+    def _mesh_scores(self, Cflat: np.ndarray) -> np.ndarray:
+        """[K, capacity] scores over the mesh: fixed-size query chunks
+        (the tail padded by repeating row 0), each sharded over ``dp``
+        against the ``cand``-sharded pool, the tiles gathered to every
+        rank.  The whole pool is scored: a prefix would break the cand
+        sharding."""
+        from .mesh import (host_fetch, placement_scores,
+                           placement_scores_pallas, put_global)
+        K = Cflat.shape[0]
+        qc = self.query_chunk
+        pad_to = -(-K // qc) * qc
+        if pad_to > K:
+            Cflat = np.concatenate(
+                [Cflat, np.repeat(Cflat[:1], pad_to - K, axis=0)], axis=0)
+        scorer = placement_scores_pallas if self.use_pallas \
+            else placement_scores
+        dm = self._device_model()
+        return np.concatenate([host_fetch(scorer(
+            self.mesh, self.pool.dev_pool,
+            put_global(self.mesh, Cflat[s:s + qc], ("dp",)),
+            self.rt.dc.oneMutBLen, dm)) for s in range(0, pad_to, qc)],
+            axis=0)[:K]
 
     def _query_arrays(self, queries):
         """Host (Cflat [K, 1, B2 * F], prm [K, 1, 4]) of K exported queries
@@ -239,17 +299,27 @@ class BatchedPlacer:
                     if nr is not None:
                         root = nr
             return root
-        # one kernel launch per batch, over the active power-of-two prefix
+        # one scorer call per batch, over the active power-of-two prefix
         # of the pool: the full-capacity pool is sized for the whole run
-        # and would spend most launches on unassigned rows
+        # and would spend most of the work on unassigned rows
         Cflat, prm = self._query_arrays(
             [rt.kern.export(q) for _, q in samples])
-        mm, rf = self._model_arrays()
-        n_used = pool.n_prefix
-        scores = append_scores_prestacked(
-            pool.dev_pool[:n_used], upload(Cflat, self.device),
-            upload(prm, self.device), mm, rf,
-            uer=rt.model.using_error_rate).cpu().numpy()
+        if self.mesh is not None:
+            n_used = pool.capacity
+            scores = self._mesh_scores(Cflat)
+        elif self.use_pallas:
+            mm, rf = self._model_arrays()
+            n_used = pool.n_prefix
+            scores = append_scores_prestacked(
+                pool.dev_pool[:n_used], upload(Cflat, self.device),
+                upload(prm, self.device), mm, rf,
+                uer=rt.model.using_error_rate).cpu().numpy()
+        else:
+            n_used = pool.n_prefix
+            C = upload(Cflat, self.device).reshape(len(samples), -1, NFIELDS)
+            scores = grid_append_scores(
+                fields_view(pool.dev_pool[:n_used], -2), fields_view(C, -1),
+                rt.dc.oneMutBLen, True, self._device_model()).cpu().numpy()
         # columns map to persistent pool rows; rows whose node became
         # ineligible (or were never assigned) are masked out
         scores[:, ~pool.valid[:n_used]] = -np.inf

@@ -1,12 +1,12 @@
 """Device-screened SPR proposals on a torch device (``--deviceTopology``).
 
-The torch twin of the single-device half of
-:mod:`maple_tpu.parallel.batch_spr`.  Every eligible dirty node's pruned
-subtree is screened against every anchor on the device; a node whose best
-re-attachment beats its current one is proposed, and the proposals go
+The torch twin of :mod:`maple_tpu.parallel.batch_spr`.  Every eligible
+dirty node's pruned subtree is screened against every anchor on the
+device; a node whose best re-attachment beats its current one is proposed,
+and the proposals go
 through the same serial re-validated apply as the host paths
 (``apply_spr_moves``), so the screen's precision affects recall only.
-Two screens, chosen as in the JAX package:
+Two single-device screens, chosen as in the JAX package:
 
 - the proxy screen (native kernels, the default): hashed mutation
   features, one ``[K, D] x [D, cap]`` float32 product per chunk of 256
@@ -16,6 +16,11 @@ Two screens, chosen as in the JAX package:
 - the exhaustive screen (``MAPLE_SPR_EXACT=1`` or python kernels): the
   appendProbNode pair kernel (``csrc/append_pairs.cu``) of each chunk of 64
   queries against the whole anchor pool, the same masks, top-1 per query.
+
+Over a mesh of ranks (``mesh=``, :mod:`maple_tpu_torch.parallel.mesh`) the
+screen is exhaustive on the interval-algebra scorer: the pool sharded over
+``cand``, query chunks over ``dp``, the score matrix gathered to every rank
+and masked on the host (``_screen_mesh``).
 
 All chunks are queued before any result is read.  Only the top-M (score,
 row) pairs of a chunk come back, into pinned host buffers behind a CUDA
@@ -531,22 +536,117 @@ def _screen_single_device_exact(rt, root: int, params, counters, t0, *,
     return _apply(rt, root, proposals, params, counters, st, t0, "")
 
 
+def _screen_mesh(rt, root: int, params, counters, t0, *, mesh,
+                 query_chunk: int):
+    """The SPR screen over a (dp x cand) mesh of ranks: the anchor pool
+    sharded over ``cand``, fixed-size query chunks over ``dp``, every tile
+    by the interval-algebra scorer (``spr_screen_scores``), the score
+    matrix gathered to every rank; masking of each query's own subtree,
+    parent and sibling on the host.  Twin of
+    maple_tpu/parallel/batch_spr.py:509-588.  Every rank runs this on the
+    same tree and applies the same proposals."""
+    from .batch_placement import DeviceTreePool
+    from .mesh import host_fetch, put_global, spr_screen_scores
+    from ..ops.append_batch import device_model_from
+    tree = rt.tree
+    strict, fails, threshold, placement_thresh = params
+    st = ScreenPass("mesh")
+    t = time.time()
+    pool = DeviceTreePool(rt, mesh.device, mesh=mesh)
+    n_anchors = pool.refresh()
+    if n_anchors == 0:
+        return None, 0.0
+    q_nodes, q_vecs, q_blens, q_tips, q_base = _collect_queries(
+        rt, root, placement_thresh)
+    if not q_nodes:
+        return None, 0.0
+    st.collect_s = time.time() - t
+    stats.passes.append(st)
+    K = len(q_nodes)
+    st.queries, st.anchors = K, n_anchors
+
+    t = time.time()
+    dm = device_model_from(rt.model, rt.dc, device=mesh.device)
+    q_budget = 256
+    while any(len(q) > q_budget for q in q_vecs):
+        q_budget *= 2
+    packed_q = OP.pack_genome_lists(q_vecs, rt.refd.lRef, q_budget,
+                                    rt.model.using_error_rate,
+                                    dtype=np.float32)
+    Q = stack_fields_host(packed_q, pool.site_rates, pool.error_rates,
+                          axis=-1).reshape(K, 1, -1)
+    blens = np.asarray(q_blens, dtype=np.float32)
+    tips = np.asarray(q_tips, dtype=bool)
+    qc = query_chunk
+    score_rows = []
+    for s in range(0, K, qc):
+        sub, bl, tp = Q[s:s + qc], blens[s:s + qc], tips[s:s + qc]
+        n_sub = sub.shape[0]
+        if n_sub < qc:  # pad the tail chunk so that it divides over dp
+            sub, bl, tp = (np.concatenate(
+                [a, np.repeat(a[:1], qc - n_sub, axis=0)], axis=0)
+                for a in (sub, bl, tp))
+        out = host_fetch(spr_screen_scores(
+            mesh, pool.dev_pool, put_global(mesh, sub, ("dp",)),
+            put_global(mesh, bl, ("dp",)), put_global(mesh, tp, ("dp",)),
+            dm))
+        score_rows.append(out[:n_sub])
+        st.chunks += 1
+    scores = np.concatenate(score_rows, axis=0)[:, :n_anchors]  # [K, N]
+    st.pack_s = time.time() - t
+
+    # host masking: own subtree, parent, sibling
+    t = time.time()
+    tin, tout = _euler_intervals(tree, root)
+    anchor_ids = np.asarray(pool.anchor_ids)
+    a_tin = tin[anchor_ids]
+    proposals = []
+    st.q_nodes = np.asarray(q_nodes)
+    st.q_best = np.full(K, -np.inf)
+    st.q_base = np.asarray(q_base, np.float64)
+    for k, node in enumerate(q_nodes):
+        invalid = (a_tin >= tin[node]) & (a_tin < tout[node])
+        parent = tree.up[node]
+        sibling = tree.children[parent][1 - tree.child_index(node)]
+        invalid |= (anchor_ids == parent) | (anchor_ids == sibling)
+        row = np.where(invalid, -np.inf, scores[k])
+        j = int(np.argmax(row))
+        st.q_best[k] = float(row[j])
+        if np.isfinite(row[j]):
+            # screened in float32
+            _accept(proposals, node, int(anchor_ids[j]), float(row[j]),
+                    q_base[k], placement_thresh)
+    st.decide_s = time.time() - t
+    return _apply(rt, root, proposals, params, counters, st, t0,
+                  f"(mesh {mesh.shape}) ")
+
+
 def device_topology_update(rt, root: int, params,
                            counters: Optional[SprCounters] = None, *,
-                           device: torch.device, mesh=None):
+                           device: torch.device, mesh=None,
+                           query_chunk: Optional[int] = None,
+                           use_pallas: bool = False):
     """One device-screened search / serial-apply SPR pass on ``device``.
     Returns (new_root_or_None, cumulative_improvement) like the host
-    parallel paths.  Twin of maple_tpu/parallel/batch_spr.py:471-507 for
-    a single device.
+    parallel paths.  Twin of maple_tpu/parallel/batch_spr.py:471-588.
+
+    Single-device runs take the pipelined screens above.  With a ``mesh``
+    the screen runs over its ranks on the interval-algebra scorer
+    (``device`` is then the mesh's own); ``query_chunk`` and
+    ``use_pallas`` belong to the mesh screen alone, and ``use_pallas``
+    only sets the default chunk (64 instead of 16), as in the JAX package.
 
     SPRTA and network annotation need the crawl's per-candidate
     posteriors and stay on the host paths (the rounds loop gates
     them)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "maple_tpu_torch: the mesh SPR screen is not ported yet; "
-            "ROADMAP.md Queue 1 item 6 ports it")
     if counters is None:
         counters = SprCounters()
+    if mesh is not None:
+        if query_chunk is None:
+            query_chunk = 64 if use_pallas else 16
+        dp = mesh.shape["dp"]
+        return _screen_mesh(rt, root, params, counters, time.time(),
+                            mesh=mesh,
+                            query_chunk=query_chunk + (-query_chunk) % dp)
     return _screen_single_device(rt, root, params, counters, time.time(),
                                  device=torch.device(device))

@@ -10,8 +10,10 @@ The device stages (``--devicePlacement``, ``--deviceTopology``) run on the
 three branches, all of them here: the proxy screen feeding the C++ engine
 (the default with native kernels and no active error model), the pipelined
 placer (``MAPLE_DEVICE_RT=1``, error-model runs, python kernels) and the
-legacy batch placer (``MAPLE_DEVICE_LEGACY=1`` with ``--devicePallas``).
-A mesh, and the legacy placer without ``--devicePallas``, raise.
+legacy batch placer (``MAPLE_DEVICE_LEGACY=1``: the interval-algebra scorer,
+or the pair kernel with ``--devicePallas``).  Over a mesh of ranks
+(:mod:`maple_tpu_torch.parallel.mesh`) the legacy placer runs, sharded;
+the proxy branch over a mesh raises.
 """
 from __future__ import annotations
 
@@ -38,15 +40,11 @@ from .search.placement import (PlacementStats, find_best_parent_for_new_sample,
                                place_sample_on_tree)
 
 
-MESH_NOT_PORTED = (
-    "maple_tpu_torch: --devicePlacement over a mesh of devices is not "
-    "ported yet; ROADMAP.md Queue 1 item 6 ports it.  Without a mesh the "
-    "run takes one card.")
-LEGACY_XLA_NOT_PORTED = (
-    "maple_tpu_torch: the legacy placer (MAPLE_DEVICE_LEGACY) without "
-    "--devicePallas scores with the interval-algebra scorer K8, which is "
-    "not ported yet; ROADMAP.md Queue 1 item 5 ports it.  Add "
-    "--devicePallas to score with the pair kernel.")
+MESH_PROXY_NOT_PORTED = (
+    "maple_tpu_torch: the proxy screen over a mesh of devices is not "
+    "ported yet; ROADMAP.md Queue 1 item 6b (the proxy pool sharded by "
+    "candidate) ports it.  Set MAPLE_DEVICE_LEGACY=1 (or MAPLE_DEVICE_RT=1) "
+    "to place over the mesh with the legacy batch placer.")
 
 
 class TraceState:
@@ -595,9 +593,11 @@ class Run:
         scoring with the exact host fine phase: the pipelined placer
         (maple_tpu_torch.parallel.pipelined_placer), or with
         MAPLE_DEVICE_LEGACY the legacy batch placer
-        (maple_tpu_torch.parallel.batch_placement).  A ``mesh`` raises."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        (maple_tpu_torch.parallel.batch_placement).  ``mesh`` shards the
+        legacy placer's scoring over a (dp, cand) mesh of ranks
+        (maple_tpu_torch.parallel.mesh): queries data-parallel, the anchor
+        pool candidate-parallel; where the proxy branch would be taken, a
+        mesh raises."""
         cfg = self.cfg
         dc = self.dc
         distances = self.sorted_distances()
@@ -623,11 +623,13 @@ class Run:
             # ``warmup`` is honored; ``batch_size`` is the rt-based
             # placers' knob and does not apply — the proxy screen
             # batches by cfg.device_proxy_batch.
+            if mesh is not None:
+                raise NotImplementedError(MESH_PROXY_NOT_PORTED)
             self.root = self._build_initial_tree_engine_device(
                 distances, first_sample, warmup=warmup)
             return
-        if legacy and not cfg.device_pallas:
-            raise NotImplementedError(LEGACY_XLA_NOT_PORTED)
+        # a mesh takes the legacy placer: the pipelined one is single-device
+        legacy = legacy or mesh is not None
         from .parallel.batch_placement import BatchedPlacer
         from .parallel.pipelined_placer import PipelinedPlacer
         tree.probVect[0] = self.rt.terminal_vector(self.data[first_sample])
@@ -677,8 +679,18 @@ class Run:
                 refresh_every=(upd if cfg.model != "JC" else 0),
                 n_placed=num_samples)
         else:
+            # the model-refresh cadence caps non-JC batches at
+            # updateSubstMatrixEveryThisSamples queries: a mesh scores in
+            # chunks of that size, rounded up to a multiple of 8
+            qc = batch_size
+            if cfg.model != "JC":
+                qc = min(batch_size, upd)
+                qc += (-qc) % 8
             placer = BatchedPlacer(
-                self.rt, self.stats, self.device, batch_size=batch_size,
+                self.rt, self.stats,
+                self.device if mesh is None else mesh.device,
+                batch_size=batch_size, query_chunk=qc, mesh=mesh,
+                use_pallas=cfg.device_pallas,
                 expected_samples=len(distances) + num_samples)
             self.legacy_placer = placer
             while distances:

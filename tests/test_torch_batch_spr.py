@@ -264,13 +264,6 @@ def test_device_topology_pass_matches_jax(tmp_path, monkeypatch, branch):
     assert abs(lk_t - lk_j) <= LK_TOL, (lk_t, lk_j)
 
 
-def test_mesh_is_not_ported(sub80_tree):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TB.device_topology_update(sub80_tree.rt, sub80_tree.root,
-                                  (True, 2, 1.0, -0.1), device=CPU,
-                                  mesh=object())
-
-
 def test_proxy_chunks_and_scatter_spills(tmp_path, monkeypatch):
     """Small scatter spills and query chunks give the same proposals as
     the defaults (the spill and chunk loops carry no state)."""

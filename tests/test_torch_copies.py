@@ -60,10 +60,12 @@ MANIFEST = {
     "native/engine.py": ALL,
     "ops/pack.py": ALL,
     # the run takes a device; --devicePlacement's branches are the port's
+    # (build_initial_tree_device: a mesh takes the legacy placer on the
+    # mesh's device, the proxy branch over a mesh raises)
     "pipeline.py": dict(
         changed=["Run.__init__", "Run._build_initial_tree_engine_device",
                  "Run.build_initial_tree_device", "run_inference"],
-        added=["MESH_NOT_PORTED", "LEGACY_XLA_NOT_PORTED"]),
+        added=["MESH_PROXY_NOT_PORTED"]),
     # main: the program's name, the CUDA check, the device
     "cli.py": dict(changed=["main"], added=["_FLAG_FIELDS"]),
     # the device SPR screen runs on run.device
@@ -170,7 +172,7 @@ def test_manifest_covers_every_copied_module():
     modules."""
     rewritten = {"__init__.py", "__main__.py", "ops/__init__.py",
                  "ops/append_batch.py", "parallel/__init__.py",
-                 "parallel/batch_placement.py",
+                 "parallel/batch_placement.py", "parallel/mesh.py",
                  "parallel/pipelined_placer.py", "parallel/proxy_placer.py",
                  "search/__init__.py"}
     found = set()

@@ -1,5 +1,5 @@
-"""The port's legacy batch placer (``MAPLE_DEVICE_LEGACY=1 --devicePallas``)
-against the JAX package.
+"""The port's legacy batch placer (``MAPLE_DEVICE_LEGACY=1``, with and
+without ``--devicePallas``) against the JAX package.
 
 The anchor pool on the device against maple_tpu's ``DeviceTreePool`` on the
 same tree (refresh and incremental update), ``batched_append_scores``
@@ -46,9 +46,10 @@ def legacy_env(monkeypatch):
     monkeypatch.setenv("MAPLE_DEVICE_LEGACY", "1")
 
 
-def legacy_placement(name, tmp_path, **flags):
+def legacy_placement(name, tmp_path, device_pallas=True, **flags):
     run = make_run(name, tmp_path, input=SUB80, model="GTR",
-                   device_placement=True, device_pallas=True, **flags)
+                   device_placement=True, device_pallas=device_pallas,
+                   **flags)
     run.build_initial_tree_device(warmup=16, batch_size=16)
     return run, placement_lk(run)
 
@@ -160,3 +161,59 @@ def test_legacy_placement_matches_maple_tpu(tmp_path):
     run_t, lk_t = legacy_placement("maple_tpu_torch", tmp_path)
     assert placed_count(run_t) == placed_count(run_j) == 80
     assert abs(lk_t - lk_j) <= SCORER_TOL, (lk_t, lk_j)
+
+
+def test_legacy_default_scorer_matches_serial(tmp_path):
+    """Without --devicePallas the legacy placer scores with the
+    interval-algebra scorer, read from the stacked pool through views."""
+    run_s, lk_s = serial_placement("maple_tpu_torch", tmp_path, SUB80,
+                                   model="GTR")
+    launches = TAP.append_scores_prestacked.launches
+    run_d, lk_d = legacy_placement("maple_tpu_torch", tmp_path,
+                                   device_pallas=False)
+    placer = run_d.legacy_placer
+    assert placer is not None and not placer.use_pallas
+    assert placer.dm is not None and placer.mm_dev is None
+    assert TAP.append_scores_prestacked.launches == launches
+    assert placed_count(run_d) == placed_count(run_s) == 80
+    assert run_d.stats.num_minors_found == run_s.stats.num_minors_found
+    assert abs(lk_d - lk_s) <= PLACEMENT_TOL, (lk_d, lk_s)
+
+
+def test_legacy_default_scorer_matches_maple_tpu(tmp_path):
+    """maple_tpu's legacy placer on its XLA interval-algebra scorer, the
+    same input and arguments."""
+    run_j, lk_j = legacy_placement("maple_tpu", tmp_path,
+                                   device_pallas=False)
+    run_t, lk_t = legacy_placement("maple_tpu_torch", tmp_path,
+                                   device_pallas=False)
+    assert placed_count(run_t) == placed_count(run_j) == 80
+    assert abs(lk_t - lk_j) <= SCORER_TOL, (lk_t, lk_j)
+
+
+def test_legacy_scorers_agree_on_a_batch(tmp_path):
+    """One batch's score matrix by both scorers of the placer, from the
+    same pool: float32 of two summation orders
+    (tests/test_mesh_pallas.py:71-72), -inf in the same cells."""
+    run, _ = serial_placement("maple_tpu_torch", tmp_path, SUB80,
+                              model="GTR")
+    rt = run.rt
+    placer = TBP.BatchedPlacer(rt, run.stats, CPU)
+    n = placer.pool.refresh()
+    vecs = [placer.pool.eligible_vec(a) for a in placer.pool.anchor_ids[:9]]
+    Cflat, prm = placer._query_arrays(vecs)
+    rows = placer.pool.dev_pool[:placer.pool.n_prefix]
+    dm = placer._device_model()
+    k1 = TAP.append_scores_prestacked(
+        rows, torch.from_numpy(Cflat), torch.from_numpy(prm),
+        dm.mut_matrix.reshape(1, 1, 16), dm.root_freqs.reshape(1, 1, 4),
+        uer=False).numpy()[:, :n]
+    from maple_tpu_torch.ops.layout import NFIELDS, fields_view
+    k8 = TAB.grid_append_scores(
+        fields_view(rows, -2),
+        fields_view(torch.from_numpy(Cflat).reshape(9, -1, NFIELDS), -1),
+        rt.dc.oneMutBLen, True, dm).numpy()[:, :n]
+    assert np.array_equal(np.isneginf(k1), np.isneginf(k8))
+    fin = np.isfinite(k1)
+    assert fin.sum() > 100
+    np.testing.assert_allclose(k8[fin], k1[fin], rtol=2e-4, atol=2e-3)

@@ -19,8 +19,7 @@ from maple_tpu.pipeline import run_inference as serial_inference
 
 from maple_tpu_torch import cli
 from maple_tpu_torch.config import MapleConfig
-from maple_tpu_torch.pipeline import (LEGACY_XLA_NOT_PORTED, MESH_NOT_PORTED,
-                                      Run, run_inference)
+from maple_tpu_torch.pipeline import MESH_PROXY_NOT_PORTED, Run, run_inference
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -91,6 +90,24 @@ def test_full_pipeline_legacy_branch_matches_serial(tmp_path, monkeypatch,
     assert abs(read_lk(dev) - serial_lk) <= LK_TOL
 
 
+def test_full_pipeline_legacy_default_scorer_matches_serial(
+        tmp_path, monkeypatch, serial_lk):
+    """MAPLE_DEVICE_LEGACY without --devicePallas takes the legacy placer
+    on the interval-algebra scorer."""
+    for name in BRANCH_ENV:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("MAPLE_DEVICE_LEGACY", "1")
+    dev = str(tmp_path / "dev")
+    run = run_inference(MapleConfig(input=SUB80, output=dev, model="GTR",
+                                    overwrite=True, device_placement=True,
+                                    device_warmup=16, device_batch_size=16),
+                        CPU)
+    placer = run.legacy_placer
+    assert placer is not None and not placer.use_pallas and placer.dm
+    assert run.pplacer is None and run.proxy_placer is None
+    assert abs(read_lk(dev) - serial_lk) <= LK_TOL
+
+
 def test_pipeline_never_imports_jax(tmp_path):
     """The default pipeline (proxy placement, the device SPR screen) in a
     fresh process ends with neither jax nor maple_tpu loaded."""
@@ -145,19 +162,13 @@ def test_cli_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("env,mesh,message,item", [
-    ({"MAPLE_DEVICE_LEGACY": "1"}, None, LEGACY_XLA_NOT_PORTED,
-     "Queue 1 item 5"),
-    ({}, object(), MESH_NOT_PORTED, "Queue 1 item 6"),
-    ({"MAPLE_DEVICE_RT": "1"}, object(), MESH_NOT_PORTED, "Queue 1 item 6"),
-    ({"MAPLE_DEVICE_LEGACY": "1"}, object(), MESH_NOT_PORTED,
-     "Queue 1 item 6")],
-    ids=["legacy-without-devicePallas", "mesh-proxy", "mesh-pipelined",
-         "mesh-legacy"])
+    ({}, object(), MESH_PROXY_NOT_PORTED, "Queue 1 item 6b")],
+    ids=["mesh-proxy"])
 def test_unported_branches_raise(tmp_path, monkeypatch, env, mesh, message,
                                  item):
-    """The legacy placer without --devicePallas (its scorer K8 is not
-    ported) and any mesh raise, naming the ROADMAP item; no host fallback
-    and no quiet switch to another scorer."""
+    """The proxy branch over a mesh (default flags, native kernels) raises,
+    naming the ROADMAP item; no host fallback and no quiet switch to
+    another placer."""
     for name in BRANCH_ENV:
         monkeypatch.delenv(name, raising=False)
     for k, v in env.items():
@@ -184,4 +195,4 @@ def test_package_source_has_no_jax_import():
     for path in paths:
         with open(path) as f:
             assert not pattern.search(f.read()), path
-    assert len(paths) >= 45
+    assert len(paths) >= 55
