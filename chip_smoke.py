@@ -7,15 +7,24 @@ Run from the root of the repository, with no arguments:
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. environment: card name and power limit, torch/CUDA/nvcc versions;
   2. build: the CUDA kernels from csrc/ with nvcc and the package's own
-     native host engine with g++, both into maple_tpu_torch/_build/;
+     native host engine with g++, both into maple_tpu_torch/_build/; each
+     kernel's registers, spills and static shared memory from the ptxas
+     report (kept beside the library, so a run that finds it built prints
+     the same);
   3. the pipelined path: ``python -m maple_tpu_torch --devicePlacement`` on
      the 3,000-genome B.1.429 subset with MAPLE_DEVICE_RT=1, in-process;
      the pair kernel's launch count must be positive, the tree and a finite
      LK must be written, and neither jax nor maple_tpu may be loaded;
-  4. the pair kernel against its plain PyTorch version on the card, on
-     the anchor rows of phase 3's own pool (tiled to n_prefix 1024 and
+  4. the pair kernel (the merge walk) against its plain PyTorch version
+     and against the grid kernel (the yardstick, on no path) on the card,
+     on the anchor rows of phase 3's own pool (tiled to n_prefix 1024 and
      8192), K=64 real queries with B2=128 entries, error model off and
-     on, with CUDA-event times of both and the kernel's bound;
+     on, with CUDA-event times of all three and the kernel's bound; then
+     the same checks on the pool as the run left it (its prefix with the
+     rows never written, all zero, and the invalidated ones) against the
+     queries packed at B2 = 128, 256 and 512, on K = 1 and K = 25 against
+     1,000 rows (no multiple of a tile), and on rows too long for shared
+     memory; the two CUDA kernels of a call timed apart by torch.profiler;
   5. placement parity: the pipelined placement on b3000 against
      maple_tpu's pipelined placer on the same input (REF_B3000_*), and on
      example_sub80 against serial placement (all samples placed, same
@@ -34,7 +43,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   8. the screen chunk (pair kernel, masks, top-1) against its plain
      version on the card, on phase 7's first full chunk: the same -inf
      rows, top-1 scores within 1e-9 (f64) and 1e-4 (f32), CUDA-event
-     times of both;
+     times of both and of the same chunk on the grid kernel;
   9. the main path: ``--devicePlacement`` on b3000 with default flags and
      no branch variable set, the whole pipeline: the proxy branch must have
      run (steps > 0, native kernels), all 3,000 placed, a finite LK;
@@ -81,7 +90,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      scatter) timed beside their bounds at the b3000 runs' shapes.
 The line before the last is the card's name and power limit, the one
 before it the kernel report, and the last line the result.  In the
-kernel report, ``launches_by_path`` holds the pair kernel's launches on
+kernel report, ``ms`` is the merge-walk kernel's time (one wrapper call:
+two CUDA kernels) and ``grid_ms`` the grid kernel's on the same operands
+in the same run; ``launches_by_path`` holds the pair kernel's launches on
 each path (placement and SPR of phase 6's exhaustive run, the legacy run
 of phase 12, the mesh run of phase 15), each counted from 0 within its own
 run; ``launches`` is their sum; ``launches_by_run`` holds each CLI run's
@@ -109,6 +120,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -220,15 +232,56 @@ def phase_environment(torch):
     print(f"[env] nvcc: {nvcc.splitlines()[-1]}")
 
 
+def ptxas_report(log):
+    """Each kernel's resources from nvcc's ``-Xptxas -v`` output: a list of
+    {"kernel", "registers", "spill_stores", "spill_loads", "stack",
+    "static_smem"} (bytes; dynamic shared memory is the launch's and not
+    in the report)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"\d+(compact_rows|append_walk|append_pairs_kernel)"
+                          r"I([fd])(?:Lb([01])E)?", name)
+            if k:
+                name = f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}" \
+                    + (f", uer={k.group(3)}>" if k.group(3) else ">")
+            cur = {"kernel": name, "registers": None, "spill_stores": 0,
+                   "spill_loads": 0, "stack": 0, "static_smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def phase_build():
+    """Returns the kernels' resources (``ptxas_report``)."""
     from maple_tpu_torch.ops import _build
     t0 = time.perf_counter()
     built = _build.library()
-    print(f"[build] {built.path.name}: nvcc {built.seconds:.2f} s, "
-          f"load {time.perf_counter() - t0:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[build] {line.strip()}")
+    print(f"[build] {built.path.name}: nvcc {built.seconds:.2f} s"
+          f"{'' if built.seconds else ' (found built)'}, load "
+          f"{time.perf_counter() - t0:.2f} s")
+    resources = ptxas_report(built.log)
+    check(len(resources) >= 10 and all(r["registers"] for r in resources),
+          f"no ptxas report for every kernel:\n{built.log}")
+    for r in resources:
+        print(f"[build] {r['kernel']}: {r['registers']} registers, spill "
+              f"stores {r['spill_stores']} B, spill loads "
+              f"{r['spill_loads']} B, stack {r['stack']} B, static shared "
+              f"memory {r['static_smem']} B")
     # the package's own host engine (g++, into the same _build/), so that
     # the walls below hold no one-time build; a failed build fails here
     # and never turns a run onto the python kernels
@@ -240,6 +293,7 @@ def phase_build():
         _build.BUILD_DIR), "the host engine was not built into _build/")
     print(f"[build] host engine {os.path.basename(bridge._LIB)}: build and "
           f"load {time.perf_counter() - t0:.2f} s")
+    return resources
 
 
 @contextlib.contextmanager
@@ -397,72 +451,244 @@ def kernel_inputs(run, seed=7):
     prm_e = prm.copy()
     prm_e[:, 0, 3] = -err.sum()
     variants = {False: (rows, cstk, prm), True: (rows_e, cstk_e, prm_e)}
-    return variants, mm, rf, len(live), pool.budget, q_budget
+    return variants, mm, rf, len(live), pool.budget, q_budget, queries, err
+
+
+def compare_kernels(torch, args64, uer, what, plain_reps=0):
+    """One input set (float64 tensors on the card) through the plain
+    version, the merge-walk kernel and the grid kernel: float64 within
+    F64_REL of plain, float32 within F32_REL, -inf in the same cells; the
+    walk's float32 scores within F32_REL of the grid's.  Times by CUDA
+    events: the medians of 20 (walk) and 10 (grid) calls; the plain
+    version's float32 median of ``plain_reps`` calls, or with 0 the one
+    float64 call that made the reference."""
+    from maple_tpu_torch.ops import append_pairs as AP
+    args32 = [a.float() for a in args64]
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    ref = AP.append_scores_prestacked_plain(*args64, uer=uer)
+    t1.record()
+    k64 = AP.append_scores_prestacked(*args64, uer=uer)
+    k32 = AP.append_scores_prestacked(*args32, uer=uer)
+    g64 = AP.append_scores_prestacked_grid(*args64, uer=uer)
+    g32 = AP.append_scores_prestacked_grid(*args32, uer=uer)
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    ref, k64, k32, g64, g32 = (x.double().cpu().numpy()
+                               for x in (ref, k64, k32, g64, g32))
+    abs64 = same_inf_and_close(ref, k64, F64_REL, f"{what}: walk f64")
+    abs32 = same_inf_and_close(ref, k32, F32_REL, f"{what}: walk f32")
+    same_inf_and_close(ref, g64, F64_REL, f"{what}: grid f64")
+    same_inf_and_close(ref, g32, F32_REL, f"{what}: grid f32")
+    d_grid = same_inf_and_close(g32, k32, F32_REL,
+                                f"{what}: walk f32 against grid f32")
+    ms = median_ms(lambda: AP.append_scores_prestacked(*args32, uer=uer),
+                   reps=20)
+    ms64 = median_ms(lambda: AP.append_scores_prestacked(*args64, uer=uer),
+                     reps=10)
+    grid_ms = median_ms(lambda: AP.append_scores_prestacked_grid(
+        *args32, uer=uer), reps=10)
+    if plain_reps:
+        plain_ms = median_ms(lambda: AP.append_scores_prestacked_plain(
+            *args32, uer=uer), reps=plain_reps, warmup=1)
+    bound, work = pair_bound(*args32[:2])
+    Pstk, Cflat = args32[:2]
+    K, N, B1, B2 = Cflat.shape[0], Pstk.shape[0], Pstk.shape[2], \
+        Cflat.shape[2] // 16
+    print(f"[kernel] {what}: K={K} N={N} B1={B1} B2={B2} uer={int(uer)}: "
+          f"walk f64 max abs err {abs64:.3e} (<= {F64_REL} relative), f32 "
+          f"{abs32:.3e} (<= {F32_REL} relative), walk f32 against grid f32 "
+          f"max |d| {d_grid:.3e}, -inf cells {int(np.isneginf(ref).sum())}, "
+          f"0 mismatched; walk f32 {ms:.4f} ms, walk f64 {ms64:.4f} ms, "
+          f"grid f32 {grid_ms:.4f} ms, plain "
+          f"{'f32' if plain_reps else 'f64, one call'} {plain_ms:.4f} ms "
+          f"(CUDA events)")
+    print(f"[kernel] {what}: {work['contributing_pairs']} contributing "
+          f"pairs of {K * N * B1 * B2} in the grid; bound "
+          f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
+          f"({work['bytes']} bytes; the operands' own layout moves "
+          f"{work['layout_bytes']}: {bound['layout_bound_ms']:.5f} ms); "
+          f"walk {ms / bound['bound_ms']:.1f}x above the bound, grid "
+          f"{grid_ms / bound['bound_ms']:.1f}x")
+    return {"shape": {"K": K, "N": N, "B1": B1, "B2": B2, "uer": int(uer)},
+            "ms": ms, "grid_ms": grid_ms, "plain_ms": plain_ms, **bound,
+            "max_abs_err": abs32, "walk_vs_grid_max_abs": d_grid,
+            "contributing_pairs": work["contributing_pairs"]}
+
+
+def kernel_split(torch, args32, uer, what, reps=5):
+    """The CUDA kernels of one wrapper call, counted and timed apart by
+    torch.profiler (mean of ``reps`` calls, ms), the first pass beside its
+    bound by bytes, the least it must move: in, the type field of every
+    slot of both operands (it finds a row's count) and, for each entry up
+    to the row's last that is no PAD, the 13 other fields ``pack_entry``
+    reads (csrc/append_walk.cuh: neither prev nor the spare field); out, a
+    count a row and a 4-byte walk word and a 12-value record an entry."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.ops.layout import F_TYPE
+    from maple_tpu_torch.ops.pack import TYPE_PAD
+    AP.append_scores_prestacked(*args32, uer=uer)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            AP.append_scores_prestacked(*args32, uer=uer)
+        torch.cuda.synchronize()
+    seen = {}     # every device event of the profiled calls, by name
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = seen.get(e.name, (0, 0.0))
+            seen[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    # a kernel launched once a call is seen at most ``reps`` times (the
+    # profiler may drop an event; a mean is over those seen)
+    check(seen and all(n <= reps for n, _ in seen.values()),
+          f"{what}: the profiler saw {seen} in {reps} calls")
+    ms = {}
+    for key in ("compact_rows", "append_walk"):
+        found = [v for name, v in seen.items() if key in name]
+        check(len(found) == 1, f"{what}: {key} among {sorted(seen)}")
+        ms[key] = found[0][1] / found[0][0] / 1e3
+    Pstk, Cflat = args32[:2]
+    K = Cflat.shape[0]
+    size = Pstk.element_size()
+
+    def entries(types):   # [rows, B] -> entries up to the last non-PAD
+        B = types.shape[1]
+        pos = torch.arange(1, B + 1, device=types.device)
+        return int(((types != TYPE_PAD) * pos).amax(1).sum().item())
+
+    n_entries = entries(Pstk[:, F_TYPE, :]) + entries(
+        Cflat.reshape(K, -1, 16)[:, :, F_TYPE])
+    slots = (Pstk.numel() + Cflat.numel()) // 16
+    nbytes = size * (slots + 13 * n_entries) + 4 * (Pstk.shape[0] + K) \
+        + (4 + 12 * size) * n_entries
+    out = {"cuda_kernels_a_call": len(seen),
+           "compact_ms": ms["compact_rows"], "walk_ms": ms["append_walk"],
+           "compact_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "compact_bytes": nbytes, "entries": n_entries}
+    print(f"[kernel] {what}: one call is {len(seen)} CUDA kernels "
+          f"(torch.profiler, mean of {reps} calls): compact_rows "
+          f"{out['compact_ms']:.4f} ms (bound {out['compact_bound_ms']:.5f} "
+          f"ms by bytes: {nbytes} bytes, {n_entries} entries of {slots} "
+          f"slots: {out['compact_ms'] / out['compact_bound_ms']:.2f}x above "
+          f"it), append_walk {out['walk_ms']:.4f} ms")
+    return out
+
+
+def pad_entries(stk, entry_axis, budget, lRef):
+    """A stacked tensor's entry axis grown to ``budget`` with PAD entries
+    (type 7, end = prev = lRef, every other field 0), as packing at that
+    budget would give: ``entry_axis`` -1 for candidates [N, 16, B], -2 for
+    queries [K, B, 16]."""
+    from maple_tpu_torch.ops.layout import F_END, F_PREV, F_TYPE
+    from maple_tpu_torch.ops.pack import TYPE_PAD
+    shape = list(stk.shape)
+    old = shape[entry_axis]
+    shape[entry_axis] = budget
+    out = np.zeros(shape, dtype=stk.dtype)
+    # both as [..., field, entry] views
+    fields, src = (out, stk) if entry_axis == -1 else \
+        (out.swapaxes(-1, -2), stk.swapaxes(-1, -2))
+    fields[..., :old] = src
+    fields[..., F_TYPE, old:] = TYPE_PAD
+    fields[..., F_END, old:] = lRef
+    fields[..., F_PREV, old:] = lRef
+    return out
 
 
 def phase_kernels(torch, run):
-    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.ops import pack as OP
+    from maple_tpu_torch.ops.layout import (F_END, F_EPS, F_TYPE,
+                                            stack_fields_host)
     dev = torch.device("cuda")
-    variants, mm, rf, n_live, B1, B2 = kernel_inputs(run)
+    variants, mm, rf, n_live, B1, B2, queries, err = kernel_inputs(run)
+    lRef = run.rt.refd.lRef
     print(f"[kernel] inputs: {n_live} live anchor rows of the main path's "
           f"pool tiled to {PREFIXES[-1]}, B1={B1}, K={K_QUERIES}, B2={B2}")
-    report = {}
-    max_abs32 = 0.0
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                               device=dev)
+
+    def operands(rows, cstk, prm):
+        K = cstk.shape[0]
+        return [t(rows), t(cstk.reshape(K, 1, -1)), t(prm[:K]), t(mm), t(rf)]
+
+    report, cases, max_abs32 = {}, {}, 0.0
     for uer in (False, True):
         rows, cstk, prm = variants[uer]
         for n_prefix in PREFIXES:
-            def t(a):
-                return torch.as_tensor(np.ascontiguousarray(a),
-                                       dtype=torch.float64, device=dev)
-            args64 = [t(rows[:n_prefix]), t(cstk.reshape(K_QUERIES, 1, -1)),
-                      t(prm), t(mm), t(rf)]
-            args32 = [a.float() for a in args64]
-            ref = AP.append_scores_prestacked_plain(*args64, uer=uer)
-            k64 = AP.append_scores_prestacked(*args64, uer=uer)
-            k32 = AP.append_scores_prestacked(*args32, uer=uer)
-            torch.cuda.synchronize()
-            ref_c, k64_c, k32_c = (x.double().cpu().numpy()
-                                   for x in (ref, k64, k32))
-            inf = np.isneginf(ref_c)
-            check(np.array_equal(inf, np.isneginf(k64_c)),
-                  "float64 kernel -inf placement differs from plain")
-            check(np.array_equal(inf, np.isneginf(k32_c)),
-                  "float32 kernel -inf placement differs from plain")
-            fin = ~inf
-            check(np.all(np.isfinite(k32_c[fin])), "non-finite scores")
-            scale = np.maximum(1.0, np.abs(ref_c[fin]))
-            rel64 = float((np.abs(k64_c[fin] - ref_c[fin]) / scale).max())
-            abs32 = np.abs(k32_c[fin] - ref_c[fin])
-            rel32 = float((abs32 / scale).max())
-            max_abs32 = max(max_abs32, float(abs32.max()))
-            check(rel64 <= F64_REL, f"float64 kernel rel err {rel64}")
-            check(rel32 <= F32_REL, f"float32 kernel rel err {rel32}")
-            ms_k32 = median_ms(lambda: AP.append_scores_prestacked(
-                *args32, uer=uer), reps=20)
-            ms_k64 = median_ms(lambda: AP.append_scores_prestacked(
-                *args64, uer=uer), reps=10)
-            ms_p32 = median_ms(
-                               lambda: AP.append_scores_prestacked_plain(
-                                   *args32, uer=uer), reps=10, warmup=1)
-            print(f"[kernel] uer={int(uer)} n_prefix={n_prefix}: "
-                  f"f64 rel err {rel64:.3e} (<= {F64_REL}), f32 rel err "
-                  f"{rel32:.3e} (<= {F32_REL}), f32 max abs err "
-                  f"{abs32.max():.3e}, -inf cells {int(inf.sum())}; "
-                  f"kernel f32 {ms_k32:.4f} ms, kernel f64 {ms_k64:.4f} "
-                  f"ms, plain f32 {ms_p32:.4f} ms (median, CUDA events)")
-            bound, work = pair_bound(*args32[:2])
-            print(f"[kernel] uer={int(uer)} n_prefix={n_prefix}: "
-                  f"{work['contributing_pairs']} contributing pairs of "
-                  f"{K_QUERIES * n_prefix * B1 * B2} in the grid; bound "
-                  f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
-                  f"({work['bytes']} bytes; the kernel's own layout moves "
-                  f"{work['layout_bytes']}: {bound['layout_bound_ms']:.5f} "
-                  f"ms)")
-            report[(uer, n_prefix)] = {"ms": ms_k32, "plain_ms": ms_p32,
-                                       **bound}
-    return {"max_abs_err": max_abs32, **report[(False, PREFIXES[-1])],
+            args64 = operands(rows[:n_prefix], cstk, prm)
+            r = compare_kernels(torch, args64, uer, f"live rows tiled to "
+                                f"{n_prefix}", plain_reps=3)
+            if not uer:
+                r["split"] = kernel_split(torch, [a.float() for a in args64],
+                                          uer, f"live rows tiled to "
+                                          f"{n_prefix}")
+            max_abs32 = max(max_abs32, r["max_abs_err"])
+            report[(uer, n_prefix)] = r
+
+    # the pool as the run left it: its prefix with the rows never written
+    # (all zero) and the invalidated ones, against the queries packed at
+    # the starting budget, twice and four times it (B2 = 128, 256, 512)
+    pool = run.pplacer.pool
+    n_prefix = pool.n_prefix
+    held = pool.dev_pool[:n_prefix]
+    check(held.dtype == torch.float32 and held.device.type == "cuda",
+          "the run's pool is not float32 on the card")
+    n_zero = int((held.abs().amax((1, 2)) == 0).sum().item())
+    n_invalid = int((~pool.dev_valid[:n_prefix]).sum().item()) - n_zero
+    check(n_zero > 0, "the run's pool prefix holds no row of zeros")
+    print(f"[kernel] the run's pool prefix: {n_prefix} rows, {n_zero} all "
+          f"zero, {n_invalid} invalidated and still holding a list, B1="
+          f"{pool.budget}")
+    held64 = held.double().cpu().numpy()
+    prm = variants[False][2]
+    for b2 in (B2, 2 * B2, 4 * B2):
+        cstk = stack_fields_host(
+            OP.pack_genome_lists(queries, lRef, b2, False), None, None,
+            axis=-1, dtype=np.float64)
+        what = f"the run's pool, B2={b2}"
+        cases[what] = compare_kernels(torch, operands(held64, cstk, prm),
+                                      False, what)
+        if b2 == 2 * B2:   # the error model on, on the same rows
+            held_e, cstk_e = held64.copy(), cstk.copy()
+            for fld in (lambda i: held_e[:, i, :], lambda i: cstk_e[..., i]):
+                pos = np.maximum(fld(F_END).astype(np.int64) - 1, 0)
+                fld(F_EPS)[...] = np.where(fld(F_TYPE) < 5, err[pos], 0.0)
+            held_e[held64.reshape(n_prefix, -1).any(1) == 0] = 0.0
+            what += ", error model on"
+            cases[what] = compare_kernels(
+                torch, operands(held_e, cstk_e, variants[True][2]), True,
+                what)
+    cases[f"the run's pool, B2={B2}"]["split"] = kernel_split(
+        torch, [a.float() for a in operands(
+            held64, variants[False][1], prm)], False, "the run's pool")
+    max_abs32 = max([max_abs32] + [c["max_abs_err"] for c in cases.values()])
+    counts = {r["split"]["cuda_kernels_a_call"]
+              for r in [*report.values(), *cases.values()] if "split" in r}
+    check(len(counts) == 1, f"CUDA kernels a call differ by shape: {counts}")
+
+    # one query, 25 queries; a row count that is no multiple of a tile
+    for uer in (False, True):
+        rows, cstk, prm = variants[uer]
+        for k in (1, 25):
+            what = f"K={k}, 1000 rows"
+            cases[f"{what}, uer={int(uer)}"] = compare_kernels(
+                torch, operands(rows[:1000], cstk[:k], prm), uer, what)
+    # rows too long for shared memory: the walk reads device memory
+    rows, cstk, prm = variants[False]
+    what = "rows beyond shared memory"
+    cases[what] = compare_kernels(torch, operands(
+        pad_entries(rows[:256], -1, 1536, lRef),
+        pad_entries(cstk[:4], -2, 8192, lRef), prm), False, what)
+    return {**report[(False, PREFIXES[-1])], "max_abs_err": max_abs32,
             "library_ms": None,
-            "n_prefix_1024": report[(False, PREFIXES[0])]}
+            "n_prefix_1024": report[(False, PREFIXES[0])],
+            "error_model_on": {str(n): report[(True, n)] for n in PREFIXES},
+            "cases": cases}
 
 
 def serial_placement(torch, path, **flags):
@@ -766,6 +992,13 @@ def phase_screen_chunk(torch, captured):
         return BS.screen_chunk(pool, valid, a_tin, Cflat, prm, q_lo, q_hi,
                                excl, mm, rf, n_prefix=n_prefix, uer=uer)
 
+    def grid(pool, Cflat, prm, mm, rf):   # the same chunk on the yardstick
+        scores = AP.append_scores_prestacked_grid(
+            pool[:n_prefix], Cflat, prm, mm, rf, uer=uer)
+        BS._mask_trivial_targets(scores, valid[:n_prefix],
+                                 a_tin[:n_prefix], q_lo, q_hi, excl)
+        return torch.topk(scores, 1, dim=1)
+
     f32 = (pool, Cflat, prm, mm, rf)
     f64 = tuple(x.double() for x in f32)
     ref, k64, k32 = (fn(*a)[0].double().cpu().numpy()[:, 0] for fn, a in
@@ -782,16 +1015,23 @@ def phase_screen_chunk(torch, captured):
     rel32 = float((abs32 / scale).max())
     check(rel64 <= F64_REL, f"screen chunk: float64 rel err {rel64}")
     check(rel32 <= F32_REL, f"screen chunk: float32 rel err {rel32}")
+    g32 = grid(*f32)[0].double().cpu().numpy()[:, 0]
+    d_grid = same_inf_and_close(g32, k32, F32_REL,
+                                "screen chunk: walk f32 against grid f32")
     ms = median_ms(lambda: kernel(*f32), reps=20)
-    plain_ms = median_ms(lambda: plain(*f32), reps=5, warmup=1)
+    grid_ms = median_ms(lambda: grid(*f32), reps=10)
+    plain_ms = median_ms(lambda: plain(*f32), reps=3, warmup=1)
     bound, _ = pair_bound(pool[:n_prefix].contiguous(), Cflat)
     print(f"[chunk] K={Cflat.shape[0]} queries, n_prefix {n_prefix}, "
           f"B1={pool.shape[-1]}, B2={Cflat.shape[-1] // 16}, uer={int(uer)}: "
           f"top-1 f64 rel err {rel64:.3e} (<= {F64_REL}), f32 rel err "
           f"{rel32:.3e} (<= {F32_REL}), f32 max abs err {abs32.max():.3e}, "
           f"-inf rows {int(inf.sum())}; screen_chunk kernel f32 {ms:.4f} "
-          f"ms, plain f32 {plain_ms:.4f} ms (median, CUDA events)")
-    return {"max_abs_err": float(abs32.max()), "ms": ms,
+          f"ms, the same chunk on the grid kernel {grid_ms:.4f} ms (top-1 "
+          f"max |d| {d_grid:.3e}), plain f32 {plain_ms:.4f} ms (median, "
+          f"CUDA events); bound {bound['bound_ms']:.5f} ms by "
+          f"{bound['bound_by']}")
+    return {"max_abs_err": float(abs32.max()), "ms": ms, "grid_ms": grid_ms,
             "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
@@ -1038,24 +1278,33 @@ def phase_legacy(torch, b3000):
     same_inf_and_close(ref, k64, F64_REL, "legacy launch, float64 kernel")
     worst = same_inf_and_close(ref, k32, F32_REL,
                                "legacy launch, float32 kernel")
+    g32 = AP.append_scores_prestacked_grid(*args32, uer=uer) \
+        .double().cpu().numpy()
+    d_grid = same_inf_and_close(g32, k32, F32_REL,
+                                "legacy launch, walk f32 against grid f32")
     ms = median_ms(lambda: AP.append_scores_prestacked(
         *args32, uer=uer), reps=20)
+    grid_ms = median_ms(lambda: AP.append_scores_prestacked_grid(
+        *args32, uer=uer), reps=10)
     plain_ms = median_ms(lambda: AP.append_scores_prestacked_plain(
         *args32, uer=uer), reps=5, warmup=1)
     Pstk, Cflat = args32[:2]
     bound, work = pair_bound(Pstk, Cflat)
     print(f"[legacy] last launch K={Cflat.shape[0]} N={Pstk.shape[0]} "
           f"B1={Pstk.shape[2]} B2={Cflat.shape[2] // 16} uer={int(uer)}: "
-          f"f32 max abs err {worst:.3e} (<= {F32_REL} relative); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA events); "
+          f"f32 max abs err {worst:.3e} (<= {F32_REL} relative), against "
+          f"the grid kernel max |d| {d_grid:.3e}; kernel {ms:.4f} ms, grid "
+          f"kernel {grid_ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA "
+          f"events); "
           f"{work['contributing_pairs']} contributing pairs, bound "
           f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} (the kernel's "
           f"own layout: {bound['layout_bound_ms']:.5f} ms)")
     stage = {"lk": lk, "minors": run.stats.num_minors_found,
              "final_lk": final_lk}
     return launches, run_label(argv, **env), {
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound,
-        "library_ms": None}, (args32, uer), stage
+        "max_abs_err": worst, "ms": ms, "grid_ms": grid_ms,
+        "plain_ms": plain_ms, **bound, "library_ms": None}, \
+        (args32, uer), stage
 
 
 def k8_inputs(torch, args32):
@@ -1263,6 +1512,18 @@ def mesh_tiles(torch, mesh, pool_g, q_g, blen, dm, what):
         print(f"[mesh] {name} + host_fetch, tile ({K}, {N}): {ms:.4f} ms "
               f"(median of 10, CUDA events); bound "
               f"{out[name]['bound_ms']:.5f} ms by {out[name]['bound_by']}")
+    # the same mesh call with the grid kernel in the pair kernel's place
+    # (this script's doing, for the time beside it: no mesh function
+    # reaches the grid kernel)
+    TM.append_scores_prestacked = AP.append_scores_prestacked_grid
+    try:
+        grid_ms = median_ms(lambda: TM.host_fetch(TM.placement_scores_pallas(
+            mesh, pool_g, q_g, blen, dm)), reps=10)
+    finally:
+        TM.append_scores_prestacked = AP.append_scores_prestacked
+    out["placement_scores_pallas"]["grid_ms"] = grid_ms
+    print(f"[mesh] placement_scores_pallas + host_fetch with the grid "
+          f"kernel in its place: {grid_ms:.4f} ms")
     return out
 
 
@@ -1363,8 +1624,9 @@ def phase_speed_of_light(torch):
     """Phase 16."""
     from maple_tpu_torch.tools import speed_of_light as SOL
     rows = SOL.run_config(8192, 64, 64, 64, 5, torch.device("cuda", 0))
-    check(len(rows) == 2 and all(np.isfinite(r["ms"]) and r["ms"] > 0
-                                 for r in rows), "speed_of_light: no rows")
+    check([r["kernel"] for r in rows] == ["k1-cuda", "k1-grid", "k8-torch"]
+          and all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows),
+          "speed_of_light: not its three rows")
     return rows
 
 
@@ -1477,8 +1739,8 @@ def main(argv):
     import maple_tpu_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
     phase_environment(torch)
-    phase_build()
-    if argv:
+    resources = phase_build()
+    if argv == ["--profile-spr"]:
         phase_profile_spr(torch)
         return 0
     launches, run = phase_pipelined_path(torch)
@@ -1514,7 +1776,10 @@ def main(argv):
         "source": "maple_tpu_torch/csrc/append_pairs.cu",
         "replaces": "maple_tpu/ops/pallas_append.py:349",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "launches_by_run": runs, **kern, "spr_screen_chunk": chunk,
+        "launches_by_run": runs,
+        "cuda_kernels_a_call": kern["split"]["cuda_kernels_a_call"],
+        "yardstick": "maple_tpu_torch/csrc/append_pairs_grid.cu (grid_ms)",
+        "resources": resources, **kern, "spr_screen_chunk": chunk,
         "legacy_batch": legacy, "interval_algebra": k8,
         "mesh_tiles": tiles,
         "speed_of_light": sol}]}))

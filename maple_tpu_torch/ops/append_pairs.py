@@ -3,15 +3,21 @@ PyTorch version.
 
 Twin of :func:`maple_tpu.ops.pallas_append.pallas_scores_prestacked` (the
 reference semantics are MAPLEv0.7.5.4.py:6505-6785).  Both lists of a
-(candidate, query) pair partition [0, lRef] into entries, so every union
-segment is the overlap of exactly one entry pair, and the score is a
-masked sum of per-pair log factors over the B1 x B2 entry grid.
+(candidate, query) pair partition [0, lRef] into sorted entries, so every
+union segment is the overlap of exactly one entry pair, and the score is
+a sum of per-pair log factors over the overlapping pairs: the steps of a
+two-pointer merge of the two lists.
 
-On a CUDA tensor :func:`append_scores_prestacked` launches the kernel in
-``csrc/append_pairs.cu``; on a CPU tensor it runs
+On a CUDA tensor :func:`append_scores_prestacked` launches the merge-walk
+kernel of ``csrc/append_pairs.cu``; on a CPU tensor it runs
 :func:`append_scores_prestacked_plain`; on any other device it raises.
+:func:`append_scores_prestacked_grid` launches the kernel that visits the
+whole B1 x B2 entry grid instead (``csrc/append_pairs_grid.cu``): the
+yardstick the walk kernel is timed and checked against, on no path.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -33,28 +39,31 @@ def append_scores_prestacked(Pstk, Cflat, prm, mm_flat, rf, *, uer: bool):
     query fields; prm [K, 1, 4] per-query (blen, tip, global_tot_rate,
     tot_error); mm_flat [1, 1, 16]; rf [1, 1, 4].  All float32 or all
     float64, on one device (layout: :mod:`maple_tpu_torch.ops.layout`).
+    Every row is a sorted entry list: ends never decrease and an entry
+    starts where the one before it ends (a row of zeros is one).
 
-    ``append_scores_prestacked.launches`` counts kernel launches."""
+    ``append_scores_prestacked.launches`` counts the calls that launched
+    the kernel: one a call, which is two CUDA kernels (the rows' compact
+    form, then the walk)."""
     device = Pstk.device
     if device.type == "cpu":
         return append_scores_prestacked_plain(Pstk, Cflat, prm, mm_flat, rf,
                                               uer=uer)
-    if device.type != "cuda":
-        raise ValueError(f"append_scores_prestacked: no kernel for device "
-                         f"{device}")
-    N, F, B1 = _check_inputs(Pstk, Cflat, prm, mm_flat, rf)
-    K = Cflat.shape[0]
-    B2 = Cflat.shape[-1] // NFIELDS
-    out = torch.empty((K, N), dtype=Pstk.dtype, device=device)
-    if N == 0 or K == 0:
+    built, (N, K, B1, B2), out = _kernel_call(Pstk, Cflat, prm, mm_flat, rf)
+    if out.numel() == 0:
         return out
-    built = _build.library()
+    n_int, n_rec = ctypes.c_longlong(), ctypes.c_longlong()
+    built.lib.append_pairs_scratch(N, K, B1, B2, ctypes.byref(n_int),
+                                   ctypes.byref(n_rec))
+    scratch_int = torch.empty(n_int.value, dtype=torch.int32, device=device)
+    scratch_rec = torch.empty(n_rec.value, dtype=Pstk.dtype, device=device)
     fn = (built.lib.append_pairs_f32 if Pstk.dtype == torch.float32
           else built.lib.append_pairs_f64)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(Pstk.data_ptr(), Cflat.data_ptr(), prm.data_ptr(),
                  mm_flat.data_ptr(), rf.data_ptr(), out.data_ptr(),
+                 scratch_int.data_ptr(), scratch_rec.data_ptr(),
                  N, K, B1, B2, int(bool(uer)), stream)
     _build.check(built.lib, err, "append_pairs kernel launch")
     append_scores_prestacked.launches += 1
@@ -62,6 +71,42 @@ def append_scores_prestacked(Pstk, Cflat, prm, mm_flat, rf, *, uer: bool):
 
 
 append_scores_prestacked.launches = 0
+
+
+def append_scores_prestacked_grid(Pstk, Cflat, prm, mm_flat, rf, *,
+                                  uer: bool):
+    """The same scores from the kernel that visits the whole B1 x B2 entry
+    grid, on CUDA tensors only: the yardstick of ``chip_smoke.py`` and
+    ``tools/speed_of_light.py``.  It counts no launch."""
+    built, (N, K, B1, B2), out = _kernel_call(Pstk, Cflat, prm, mm_flat, rf)
+    if out.numel() == 0:
+        return out
+    fn = (built.lib.append_pairs_grid_f32 if Pstk.dtype == torch.float32
+          else built.lib.append_pairs_grid_f64)
+    with torch.cuda.device(Pstk.device):
+        stream = torch.cuda.current_stream(Pstk.device).cuda_stream
+        err = fn(Pstk.data_ptr(), Cflat.data_ptr(), prm.data_ptr(),
+                 mm_flat.data_ptr(), rf.data_ptr(), out.data_ptr(),
+                 N, K, B1, B2, int(bool(uer)), stream)
+    _build.check(built.lib, err, "append_pairs_grid kernel launch")
+    return out
+
+
+def _kernel_call(Pstk, Cflat, prm, mm_flat, rf):
+    """What both kernels' wrappers do before a launch: refuse a device
+    without a kernel, validate, allocate the scores, load the library
+    (when there is anything to score).  Returns (library, (N, K, B1, B2),
+    scores)."""
+    device = Pstk.device
+    if device.type != "cuda":
+        raise ValueError(f"append_scores_prestacked: no kernel for device "
+                         f"{device}")
+    N, _, B1 = _check_inputs(Pstk, Cflat, prm, mm_flat, rf)
+    K = Cflat.shape[0]
+    B2 = Cflat.shape[-1] // NFIELDS
+    out = torch.empty((K, N), dtype=Pstk.dtype, device=device)
+    built = _build.library() if out.numel() else None
+    return built, (N, K, B1, B2), out
 
 
 def _check_inputs(Pstk, Cflat, prm, mm_flat, rf):

@@ -2,9 +2,12 @@
 
 How close the two batched appendProbNode scorers (the hot function of
 placement, reference MAPLEv0.7.5.4.py:6505-6785) run to the bound of the
-card they run on: the pair kernel (``csrc/append_pairs.cu`` through
-``ops.append_pairs``) and the interval-algebra scorer in torch ops
-(``ops.append_batch``), on the same inputs.  The torch twin of the JAX
+card they run on: the pair kernel (the merge walk of
+``csrc/append_pairs.cu`` through ``ops.append_pairs``, row ``k1-cuda``;
+beside it the kernel that visits the whole entry grid,
+``csrc/append_pairs_grid.cu``, row ``k1-grid``: the yardstick, on no
+path) and the interval-algebra scorer in torch ops (``ops.append_batch``,
+row ``k8-torch``), on the same inputs.  The torch twin of the JAX
 package's ``scripts/speed_of_light.py``.
 
     python3 -m maple_tpu_torch.tools.speed_of_light \\
@@ -20,7 +23,9 @@ What a call must do is therefore data-dependent:
                        operations a pair, the figure in csrc/append_pairs.cu)
   executed grid        K * N * B1 * B2_active, the pairs a kernel visits
                        when it walks the whole grid of live query entries
-                       to find the contributing ones
+                       to find the contributing ones (``k1-grid`` does;
+                       the merge walk takes at most L1 + L2 steps a
+                       (query, candidate), L a list's entries)
 
 Data model.  The function is the same for both scorers (packed candidate
 and query genome lists, the model and its per-site tables in, scores out),
@@ -190,6 +195,8 @@ def run_config(n, k, b1, b2, reps, device: torch.device, use_k8=True,
     if use_k1:
         scorers["k1-cuda"] = lambda: AP.append_scores_prestacked(
             Pstk, Cflat, prm, mm, rf, uer=False)
+        scorers["k1-grid"] = lambda: AP.append_scores_prestacked_grid(
+            Pstk, Cflat, prm, mm, rf, uer=False)
     if use_k8:
         scorers["k8-torch"] = lambda: AB.grid_append_scores(
             P_dev, C_dev, blen, True, dm)
@@ -213,16 +220,19 @@ def run_config(n, k, b1, b2, reps, device: torch.device, use_k8=True,
             "times_above_bound": round(ms / work["bound_ms"], 1),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
         })
-        if name == "k1-cuda":
+        if name.startswith("k1-"):
             rows[-1].update(layout_bytes=work["layout_bytes"],
                             layout_bound_ms=work["layout_bound_ms"])
         print(json.dumps(rows[-1]), flush=True)
-    if len(scores) == 2:   # the two scorers must agree on what they time
-        a, b = (s.cpu().numpy() for s in scores.values())
+    # the scorers must agree on what they time
+    names = list(scores)
+    for name in names[1:]:
+        a, b = (scores[n].cpu().numpy() for n in (names[0], name))
         fin = np.isfinite(a)
         if not np.array_equal(fin, np.isfinite(b)) or not np.allclose(
                 a[fin], b[fin], rtol=2e-4, atol=2e-3):
-            raise RuntimeError("the two scorers disagree on these inputs")
+            raise RuntimeError(f"{names[0]} and {name} disagree on these "
+                               f"inputs")
     return rows
 
 
