@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      rows never written, all zero, and the invalidated ones) against the
      queries packed at B2 = 128, 256 and 512, on K = 1 and K = 25 against
      1,000 rows (no multiple of a tile), and on rows too long for shared
-     memory; the two CUDA kernels of a call timed apart by torch.profiler;
+     memory; the two CUDA kernels of a call timed apart by torch.profiler
+     (not measured, and no failure, where it traces no device event);
   5. placement parity: the pipelined placement on b3000 against
      maple_tpu's pipelined placer on the same input (REF_B3000_*), and on
      example_sub80 against serial placement (all samples placed, same
@@ -82,12 +83,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      one tile of each mesh scorer bitwise equal to the single-device
      scorer, on the operands of the run's own last placement call (a
      query chunk against the whole pool) and on phase 12's last batch.
-     One card shows that the mesh code runs on CUDA tensors through NCCL;
-     tiles over several ranks are shown by the CPU tests (gloo, 4 ranks);
+     ``dryrun_multichip`` takes ``placer="legacy"`` here: its default is
+     the proxy placer (phase 17).  One card shows that the mesh code runs
+     on CUDA tensors through NCCL; tiles over several ranks are shown by
+     the CPU tests (gloo, 4 ranks);
  16. ``maple_tpu_torch.tools.speed_of_light`` at N 8192, K 64, B1 = B2 =
      64: both scorers' rows; then the device functions that are torch ops
      (the anchor-row scatter, the proxy screen step, the legacy pool's row
-     scatter) timed beside their bounds at the b3000 runs' shapes.
+     scatter) timed beside their bounds at the b3000 runs' shapes;
+ 17. the proxy pool sharded by candidate (K11, ``proxy_step_sharded``), on
+     phase 15's group, right after it: (a) b3000 UNREST with default flags
+     through ``build_initial_tree_device(mesh=...)`` on the 1 x 1 mesh:
+     every step through K11, no pair-kernel launch, the LK and minors of
+     phase 10's single-device float32 run exactly and serial's within
+     1e-6, the same step count; (b) K11 alone at phase 11's shape (256
+     queries, a 65,536 x 8,192 float32 pool, 512 changed rows, top-128)
+     against ``proxy_step`` on the same seeded tensors: the same pool after
+     the scatter and bitwise equal sorted scores, both timed (CUDA events)
+     beside K11's bound and the product alone (``torch.matmul``, the
+     library call); (c) ``dryrun_multichip`` with its default placer on
+     b3000: the placement LK serial's within 1e-6; after phase 16, (d) the
+     tools at 2,000 synthetic samples on the card: ``benchmark_multihost``
+     (one NCCL rank, its own process), ``benchmark_device --spr`` and
+     ``benchmark_spr_recall --exact``.  Its numbers are on ``[mesh-proxy]``
+     and ``[tools]`` lines, K11's as one JSON object; K11 is torch ops and
+     a collective, no hand kernel, and stays out of the kernel report.
 The line before the last is the card's name and power limit, the one
 before it the kernel report, and the last line the result.  In the
 kernel report, ``ms`` is the merge-walk kernel's time (one wrapper call:
@@ -113,7 +133,16 @@ function, so ``library_ms`` is null.
 
 runs phases 1 and 2, then torch.profiler around one SPR pass of each
 screen on phase 7's b3000 tree (after a warm-up pass of each): the device's
-busy share of the pass and its heaviest kernels.  It prints no result line.
+busy share of the pass and its heaviest kernels.
+
+    python3 chip_smoke.py --profile-mesh
+
+runs phases 1 and 2, then b3000 placement with default flags on one device
+and over phase 15's 1 x 1 NCCL mesh, each warmed up, then plain and under
+torch.profiler: the placer's device time between its step events beside
+the host time that issues the steps and the device's busy time by kernel;
+then K11 against ``proxy_step`` alone, timed and traced.
+Neither mode prints a result line.
 """
 from __future__ import annotations
 
@@ -144,6 +173,7 @@ PLACEMENT_LK_TOL = 1e-6              # maple_tpu's own device contract
 BRANCH_ENV = ("MAPLE_DEVICE_RT", "MAPLE_DEVICE_LEGACY", "MAPLE_PROXY_BF16",
               "MAPLE_PROXY_D", "MAPLE_SPR_EXACT")
 SYN_SAMPLES, SYN_SEED = 20000, 1
+TOOL_SAMPLES = 2000                  # synthetic samples of phase 17's tools
 F64_REL = 1e-9                       # kernel vs plain, both float64
 K8_F32_RTOL, K8_F32_ATOL = 2e-4, 2e-3  # float32 scores of two scorers
                                      # (tests/test_mesh_pallas.py:71-72)
@@ -523,7 +553,12 @@ def kernel_split(torch, args32, uer, what, reps=5):
     slot of both operands (it finds a row's count) and, for each entry up
     to the row's last that is no PAD, the 13 other fields ``pack_entry``
     reads (csrc/append_walk.cuh: neither prev nor the spare field); out, a
-    count a row and a 4-byte walk word and a 12-value record an entry."""
+    count a row and a 4-byte walk word and a 12-value record an entry.
+
+    Where the profiler traces no device event in two tries (CUPTI is not
+    on every machine), the split is not measured: its times and its
+    kernel count are None, and the call's whole time stays the one that
+    ``compare_kernels`` took by CUDA events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from maple_tpu_torch.ops import append_pairs as AP
@@ -531,25 +566,29 @@ def kernel_split(torch, args32, uer, what, reps=5):
     from maple_tpu_torch.ops.pack import TYPE_PAD
     AP.append_scores_prestacked(*args32, uer=uer)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            AP.append_scores_prestacked(*args32, uer=uer)
-        torch.cuda.synchronize()
     seen = {}     # every device event of the profiled calls, by name
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = seen.get(e.name, (0, 0.0))
-            seen[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                AP.append_scores_prestacked(*args32, uer=uer)
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = seen.get(e.name, (0, 0.0))
+                seen[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if seen:
+            break
     # a kernel launched once a call is seen at most ``reps`` times (the
     # profiler may drop an event; a mean is over those seen)
-    check(seen and all(n <= reps for n, _ in seen.values()),
+    check(all(n <= reps for n, _ in seen.values()),
           f"{what}: the profiler saw {seen} in {reps} calls")
     ms = {}
     for key in ("compact_rows", "append_walk"):
         found = [v for name, v in seen.items() if key in name]
-        check(len(found) == 1, f"{what}: {key} among {sorted(seen)}")
-        ms[key] = found[0][1] / found[0][0] / 1e3
+        check(not seen or len(found) == 1,
+              f"{what}: {key} among {sorted(seen)}")
+        ms[key] = found[0][1] / found[0][0] / 1e3 if found else None
     Pstk, Cflat = args32[:2]
     K = Cflat.shape[0]
     size = Pstk.element_size()
@@ -564,10 +603,17 @@ def kernel_split(torch, args32, uer, what, reps=5):
     slots = (Pstk.numel() + Cflat.numel()) // 16
     nbytes = size * (slots + 13 * n_entries) + 4 * (Pstk.shape[0] + K) \
         + (4 + 12 * size) * n_entries
-    out = {"cuda_kernels_a_call": len(seen),
+    out = {"cuda_kernels_a_call": len(seen) or None,
            "compact_ms": ms["compact_rows"], "walk_ms": ms["append_walk"],
            "compact_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
            "compact_bytes": nbytes, "entries": n_entries}
+    if not seen:
+        print(f"[kernel] {what}: torch.profiler traced no device event in "
+              f"two tries of {reps} calls: the split into compact_rows and "
+              f"append_walk is not measured (compact_rows bound "
+              f"{out['compact_bound_ms']:.5f} ms by bytes: {nbytes} bytes, "
+              f"{n_entries} entries of {slots} slots)")
+        return out
     print(f"[kernel] {what}: one call is {len(seen)} CUDA kernels "
           f"(torch.profiler, mean of {reps} calls): compact_rows "
           f"{out['compact_ms']:.4f} ms (bound {out['compact_bound_ms']:.5f} "
@@ -669,7 +715,8 @@ def phase_kernels(torch, run):
     max_abs32 = max([max_abs32] + [c["max_abs_err"] for c in cases.values()])
     counts = {r["split"]["cuda_kernels_a_call"]
               for r in [*report.values(), *cases.values()] if "split" in r}
-    check(len(counts) == 1, f"CUDA kernels a call differ by shape: {counts}")
+    counts.discard(None)   # not traced
+    check(len(counts) <= 1, f"CUDA kernels a call differ by shape: {counts}")
 
     # one query, 25 queries; a row count that is no multiple of a tile
     for uer in (False, True):
@@ -708,9 +755,9 @@ def serial_placement(torch, path, **flags):
 
 
 def device_placement(torch, path, warmup=None, batch_size=None, env=None,
-                     **flags):
+                     mesh=None, **flags):
     """The port's device placement stage on the card, on the branch that
-    ``env`` selects (none: the proxy branch)."""
+    ``env`` selects (none: the proxy branch), over ``mesh`` if given."""
     from maple_tpu_torch.config import MapleConfig
     from maple_tpu_torch.pipeline import Run
     out = tempfile.mkdtemp(prefix="smoke_dev_")
@@ -723,7 +770,7 @@ def device_placement(torch, path, warmup=None, batch_size=None, env=None,
         run.build_initial_tree_device(
             warmup=cfg.device_warmup if warmup is None else warmup,
             batch_size=cfg.device_batch_size if batch_size is None
-            else batch_size)
+            else batch_size, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     check(run.rt.kern.name == "native", "device run left the native kernels")
@@ -1107,7 +1154,8 @@ def time_product(torch, K, D, cap):
 
 
 def phase_proxy_parity(torch):
-    """Phase 10."""
+    """Phase 10.  Returns the float32 run's placement LK, minors and steps,
+    and serial's."""
     from maple_tpu_torch.parallel import proxy_placer as TP
     ser, ser_lk = serial_placement(torch, B3000, model="UNREST")
     check(placed_count(ser) == N_SAMPLES, "b3000 serial: not all placed")
@@ -1147,6 +1195,10 @@ def phase_proxy_parity(torch):
               f"{tag}: LK differs from serial by {lk - ser_lk}")
         check(run.stats.num_minors_found == ser.stats.num_minors_found,
               f"{tag}: minor count differs from serial")
+        if not env:
+            f32 = {"lk": lk, "minors": run.stats.num_minors_found,
+                   "steps": pl.steps, "serial_lk": ser_lk,
+                   "serial_minors": ser.stats.num_minors_found}
     # one mid-run step against float64 on the same arrays
     check(kept, "no proxy step was captured")
     (AF, valid), arrays, topm, ts = kept[0]
@@ -1174,6 +1226,7 @@ def phase_proxy_parity(torch):
           f"{F32_REL} relative), -inf cells {int(np.isneginf(b).sum())}")
     del AF64, ref, QF, rows, kept
     time_product(torch, pl.batch_size, AF.shape[1], AF.shape[0])
+    return f32
 
 
 def phase_proxy_20k(torch):
@@ -1527,16 +1580,12 @@ def mesh_tiles(torch, mesh, pool_g, q_g, blen, dm, what):
     return out
 
 
-def phase_mesh(torch, last, pallas_stage):
-    """Phase 15.  Returns the pair kernel's launches of the mesh run, the
-    count of mesh scorer calls, and the time of one mesh call of each
-    placement scorer beside its bound, at the mesh run's own shape and at
-    phase 12's."""
+@contextlib.contextmanager
+def one_rank_mesh(torch):
+    """A process group of one NCCL rank and its 1 x 1 (dp x cand) mesh, for
+    phases 15 and 17; the group is destroyed on the way out."""
     import torch.distributed as dist
-    from maple_tpu_torch import dryrun
-    from maple_tpu_torch.ops import append_pairs as AP
     from maple_tpu_torch.parallel import mesh as TM
-    from maple_tpu_torch.parallel import batch_spr as BS
     from maple_tpu_torch.parallel.ranks import free_port, init_group
     dev = init_group("nccl", 0, 1, free_port(), timeout=600.0)
     try:
@@ -1544,80 +1593,289 @@ def phase_mesh(torch, last, pallas_stage):
         check(dist.get_backend(mesh.group) == "nccl" and mesh.size == 1
               and mesh.shape == {"dp": 1, "cand": 1},
               f"not a 1 x 1 NCCL mesh: {mesh.shape}")
-        calls = {"placement_scores_pallas": 0, "spr_screen_scores": 0,
-                 "host_fetch": 0}
-        saved = {name: getattr(TM, name) for name in calls}
-        own = []     # the operands of the run's last placement call
-
-        def counting(name):
-            def call(*a, **kw):
-                calls[name] += 1
-                if name == "placement_scores_pallas":
-                    own[:] = [a[1:]]
-                return saved[name](*a, **kw)
-            return call
-
-        for name in calls:
-            setattr(TM, name, counting(name))
-        BS.stats.reset()
-        AP.append_scores_prestacked.launches = 0
-        t0 = time.perf_counter()
-        try:
-            with branch_env():
-                out = dryrun.dryrun_multichip(
-                    mesh, input=B3000, use_pallas=True, warmup=256,
-                    batch_size=64, reference_lk=pallas_stage["lk"])
-            torch.cuda.synchronize()
-        finally:
-            for name, fn in saved.items():
-                setattr(TM, name, fn)
-        wall = time.perf_counter() - t0
-        launches = AP.append_scores_prestacked.launches
-        (st,) = BS.stats.passes
-        check(launches > 0 and launches == out["launches"]
-              == calls["placement_scores_pallas"],
-              f"mesh placement: {launches} launches, "
-              f"{calls['placement_scores_pallas']} scorer calls")
-        check(st.branch == "mesh" and st.chunks
-              == calls["spr_screen_scores"] > 0,
-              "the mesh SPR screen did not run on spr_screen_scores")
-        check(calls["host_fetch"] >= launches + st.chunks,
-              "a tile was read without the gather")
-        check(out["placed"] == N_SAMPLES, "mesh: samples not all placed")
-        check(out["genome_max_abs_diff"] <= 1e-4, "mesh: genome scorer")
-        print(f"[mesh] 1 x 1 mesh over a 1-rank NCCL group on {dev}: "
-              f"dryrun_multichip on b3000 in {wall:.2f} s; placement LK "
-              f"{out['lk_placement']}, held within {dryrun.PLACEMENT_TOL} of "
-              f"the single-device --devicePallas placement's "
-              f"{pallas_stage['lk']} (delta "
-              f"{out['lk_placement'] - pallas_stage['lk']:.3e}; serial "
-              f"{out['lk_serial']}), minors {out['minors']} (single-device "
-              f"{pallas_stage['minors']}, serial {out['minors_serial']}); "
-              f"{launches} pair-kernel launches in "
-              f"{calls['placement_scores_pallas']} mesh scorer calls; SPR "
-              f"pass {st.queries} queries x {st.anchors} anchors in "
-              f"{st.chunks} chunks (interval algebra), {st.proposals} "
-              f"proposals, LK {out['lk_spr']}; genome mesh "
-              f"{out['genome_mesh']} max |d| "
-              f"{out['genome_max_abs_diff']:.3e}; {calls['host_fetch']} "
-              f"gathers")
-        print(f"[mesh] SPR pass host collect {st.collect_s:.3f} s, score "
-              f"{st.pack_s:.3f} s, decide {st.decide_s:.3f} s, apply "
-              f"{st.apply_s:.3f} s")
-        # the run's own last placement call (a chunk of queries against
-        # the whole pool), then phase 12's last batch
-        (pool_g, q_g, blen, dm), = own
-        tiles = {"mesh_run": mesh_tiles(torch, mesh, pool_g, q_g, blen, dm,
-                                        "the mesh run's last call")}
-        Pstk, Cflat = last[0][:2]
-        _, _, blen, dm, _ = k8_inputs(torch, last[0])
-        tiles["legacy_batch"] = mesh_tiles(
-            torch, mesh, TM.put_global(mesh, Pstk, ("cand",)),
-            TM.put_global(mesh, Cflat, ("dp",)), blen, dm,
-            "phase 12's last batch")
+        yield mesh
     finally:
         dist.destroy_process_group()
+
+
+def phase_mesh(torch, mesh, last, pallas_stage):
+    """Phase 15.  Returns the pair kernel's launches of the mesh run, the
+    count of mesh scorer calls, and the time of one mesh call of each
+    placement scorer beside its bound, at the mesh run's own shape and at
+    phase 12's."""
+    from maple_tpu_torch import dryrun
+    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.parallel import mesh as TM
+    from maple_tpu_torch.parallel import batch_spr as BS
+    dev = mesh.device
+    calls = {"placement_scores_pallas": 0, "spr_screen_scores": 0,
+             "host_fetch": 0}
+    saved = {name: getattr(TM, name) for name in calls}
+    own = []     # the operands of the run's last placement call
+
+    def counting(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            if name == "placement_scores_pallas":
+                own[:] = [a[1:]]
+            return saved[name](*a, **kw)
+        return call
+
+    for name in calls:
+        setattr(TM, name, counting(name))
+    BS.stats.reset()
+    AP.append_scores_prestacked.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with branch_env():
+            out = dryrun.dryrun_multichip(
+                mesh, input=B3000, use_pallas=True, warmup=256,
+                batch_size=64, reference_lk=pallas_stage["lk"],
+                placer="legacy")
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(TM, name, fn)
+    wall = time.perf_counter() - t0
+    launches = AP.append_scores_prestacked.launches
+    (st,) = BS.stats.passes
+    check(launches > 0 and launches == out["launches"]
+          == calls["placement_scores_pallas"],
+          f"mesh placement: {launches} launches, "
+          f"{calls['placement_scores_pallas']} scorer calls")
+    check(st.branch == "mesh" and st.chunks
+          == calls["spr_screen_scores"] > 0,
+          "the mesh SPR screen did not run on spr_screen_scores")
+    check(calls["host_fetch"] >= launches + st.chunks,
+          "a tile was read without the gather")
+    check(out["placed"] == N_SAMPLES, "mesh: samples not all placed")
+    check(out["genome_max_abs_diff"] <= 1e-4, "mesh: genome scorer")
+    print(f"[mesh] 1 x 1 mesh over a 1-rank NCCL group on {dev}: "
+          f"dryrun_multichip on b3000 in {wall:.2f} s; placement LK "
+          f"{out['lk_placement']}, held within {dryrun.PLACEMENT_TOL} of "
+          f"the single-device --devicePallas placement's "
+          f"{pallas_stage['lk']} (delta "
+          f"{out['lk_placement'] - pallas_stage['lk']:.3e}; serial "
+          f"{out['lk_serial']}), minors {out['minors']} (single-device "
+          f"{pallas_stage['minors']}, serial {out['minors_serial']}); "
+          f"{launches} pair-kernel launches in "
+          f"{calls['placement_scores_pallas']} mesh scorer calls; SPR "
+          f"pass {st.queries} queries x {st.anchors} anchors in "
+          f"{st.chunks} chunks (interval algebra), {st.proposals} "
+          f"proposals, LK {out['lk_spr']}; genome mesh "
+          f"{out['genome_mesh']} max |d| "
+          f"{out['genome_max_abs_diff']:.3e}; {calls['host_fetch']} "
+          f"gathers")
+    print(f"[mesh] SPR pass host collect {st.collect_s:.3f} s, score "
+          f"{st.pack_s:.3f} s, decide {st.decide_s:.3f} s, apply "
+          f"{st.apply_s:.3f} s")
+    # the run's own last placement call (a chunk of queries against
+    # the whole pool), then phase 12's last batch
+    (pool_g, q_g, blen, dm), = own
+    tiles = {"mesh_run": mesh_tiles(torch, mesh, pool_g, q_g, blen, dm,
+                                    "the mesh run's last call")}
+    Pstk, Cflat = last[0][:2]
+    _, _, blen, dm, _ = k8_inputs(torch, last[0])
+    tiles["legacy_batch"] = mesh_tiles(
+        torch, mesh, TM.put_global(mesh, Pstk, ("cand",)),
+        TM.put_global(mesh, Cflat, ("dp",)), blen, dm,
+        "phase 12's last batch")
     return launches, sum(calls.values()) - calls["host_fetch"], tiles
+
+
+def k11_inputs(torch, dev, K=256, D=8192, cap=65536, R=512, F=64, seed=13):
+    """One proxy step's operands at the 20,000-sample run's shape (phase
+    11: 256 queries against a 65,536 x 8,192 float32 pool), seeded on the
+    card: the pool, its valid mask, R changed rows and K queries of F
+    features each."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(shape, high):
+        return torch.randint(0, high, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    AF = torch.rand((cap, D), generator=g, device=dev)
+    valid = torch.rand(cap, generator=g, device=dev) < 0.9
+    arrays = (torch.randperm(cap, generator=g, device=dev)[:R].int(),
+              ints((R, F), D), torch.rand((R, F), generator=g, device=dev),
+              torch.rand(R, generator=g, device=dev) < 0.9,
+              ints((K, F), D), torch.rand((K, F), generator=g, device=dev))
+    return AF, valid, arrays
+
+
+def k11_bound(K, D, cap, R, F, M, cand):
+    """The least time for one K11 step on one rank: the local product's
+    operations over the float32 rate, or the bytes it must move (the
+    slice, its valid mask and the changed rows read and written once, the
+    update and query arrays, the local and gathered winners and the
+    result, 12 bytes a winner) over the memory rate, whichever is
+    larger."""
+    rows = cap // cand
+    t_ops = 2.0 * K * D * rows / F32_FLOPS
+    nbytes = (rows * (4 * D + 1) + R * (4 + 8 * F + 1 + 4 * D + 1)
+              + K * 8 * F + 12 * K * M * (2 + cand))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": 2 * K * D * rows}
+
+
+def phase_mesh_proxy(torch, mesh, f32):
+    """Phase 17 (a)-(c), on phase 15's 1 x 1 mesh; K11's numbers on one
+    ``[mesh-proxy]`` line of JSON."""
+    from maple_tpu_torch import dryrun
+    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.parallel import proxy_placer as TP
+    import torch.distributed as dist
+    dev = mesh.device
+    # NCCL makes a group's communicator at its first collective: make the
+    # cand group's here, timed, so that the run's steps below do not hold it
+    t0 = time.perf_counter()
+    x = torch.zeros(1, device=dev)
+    dist.all_gather([torch.empty_like(x)], x, group=mesh.axis_groups["cand"])
+    torch.cuda.synchronize()
+    print(f"[mesh-proxy] the cand group's first collective (its NCCL "
+          f"communicator made): {time.perf_counter() - t0:.3f} s")
+    # (a) b3000 UNREST, default flags, through the placer over the mesh
+    k11, calls = TP.proxy_step_sharded, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return k11(*args, **kw)
+
+    TP.proxy_step_sharded = counted
+    AP.append_scores_prestacked.launches = 0
+    try:
+        run, lk, wall = device_placement(torch, B3000, mesh=mesh,
+                                         model="UNREST")
+    finally:
+        TP.proxy_step_sharded = k11
+    pl = run.proxy_placer
+    check(pl is not None and pl.pool.mesh is mesh and run.pplacer is None
+          and run.legacy_placer is None,
+          "mesh-proxy: default flags over the mesh did not take the proxy "
+          "placer on the mesh")
+    check(len(calls) == pl.steps == f32["steps"] > 0,
+          f"mesh-proxy: {len(calls)} K11 steps, the placer counted "
+          f"{pl.steps}, phase 10's run {f32['steps']}")
+    check(AP.append_scores_prestacked.launches == 0,
+          "mesh-proxy: the proxy run launched the pair kernel")
+    check(placed_count(run) == N_SAMPLES, "mesh-proxy: not all placed")
+    print(f"[mesh-proxy] b3000 UNREST over the 1 x 1 NCCL mesh: LK {lk} "
+          f"(phase 10's single-device float32 run {f32['lk']}, delta "
+          f"{lk - f32['lk']:.3e}; serial {f32['serial_lk']}, delta "
+          f"{lk - f32['serial_lk']:.3e}); minors "
+          f"{run.stats.num_minors_found} (single device {f32['minors']}, "
+          f"serial {f32['serial_minors']}); {len(calls)} K11 steps "
+          f"({f32['steps']} single-device); pool "
+          f"{tuple(pl.pool.AF.shape)} of {pl.pool.capacity} rows on "
+          f"{pl.pool.AF.device}")
+    report_proxy("mesh-proxy", pl, wall, N_SAMPLES)
+    check(lk == f32["lk"] and run.stats.num_minors_found == f32["minors"],
+          "mesh-proxy: the 1 x 1 mesh run differs from the single-device "
+          "run")
+    check(abs(lk - f32["serial_lk"]) <= PLACEMENT_LK_TOL
+          and run.stats.num_minors_found == f32["serial_minors"],
+          "mesh-proxy: the mesh run differs from serial placement")
+    del run
+
+    # (b) K11 alone at the 20,000-sample run's shape against proxy_step
+    K, D, cap, R, F, M = 256, 8192, 65536, 512, 64, 128
+    AF, valid, arrays = k11_inputs(torch, dev, K, D, cap, R, F)
+    AF1, valid1 = AF.clone(), valid.clone()
+    ts1, ti1 = TP.proxy_step(AF1, valid1, *arrays, topm=M)
+    # the updates this rank holds, numbered from its first row: on the
+    # 1 x 1 mesh all of them, as they are
+    arrays = (*TP.local_updates(mesh, cap, *arrays[:4]), *arrays[4:])
+    ts, ti = TP.proxy_step_sharded(mesh, AF, valid, *arrays, topm=M, cap=cap)
+    torch.cuda.synchronize()
+    check(torch.equal(AF, AF1) and torch.equal(valid, valid1),
+          "K11: the pool after the scatter differs from proxy_step's")
+    a, b = (np.sort(x.cpu().numpy(), axis=1) for x in (ts, ts1))
+    check(np.array_equal(a, b), "K11: sorted top-M scores differ from "
+          "proxy_step's")
+    rows_equal = bool(torch.equal(ti, ti1))
+    del AF1, valid1
+    ms = median_ms(lambda: TP.proxy_step_sharded(
+        mesh, AF, valid, *arrays, topm=M, cap=cap), reps=10)
+    step_ms = median_ms(lambda: TP.proxy_step(AF, valid, *arrays, topm=M),
+                        reps=10)
+    QF = torch.rand((K, D), device=dev)
+    product_ms = median_ms(lambda: QF @ AF.T, reps=10)
+    bound = k11_bound(K, D, cap, R, F, M, mesh.shape["cand"])
+    report = {"name": "proxy_step_sharded", "route": "torch ops + NCCL",
+              "source": "maple_tpu_torch/parallel/proxy_placer.py",
+              "replaces": "maple_tpu/parallel/proxy_placer.py:105-154 "
+              "(on P('cand', None)); scripts/multihost_screen_worker.py:72-94",
+              "steps_b3000": len(calls), "shape": {
+                  "K": K, "D": D, "cap": cap, "R": R, "F": F, "M": M,
+                  "cand": mesh.shape["cand"]},
+              "max_abs_err": float(np.max(np.abs(a - b), initial=0.0,
+                                          where=np.isfinite(b))),
+              "rows_equal": rows_equal, "ms": ms, "proxy_step_ms": step_ms,
+              "library_ms": product_ms, **bound}
+    print(f"[mesh-proxy] K11 at K {K}, D {D}, cap {cap}, {R} changed rows, "
+          f"top-{M}, 1 x 1 NCCL mesh: sorted scores bitwise equal to "
+          f"proxy_step's (rows equal: {rows_equal}); {ms:.4f} ms against "
+          f"proxy_step's {step_ms:.4f} ms (median of 10, CUDA events); the "
+          f"product alone (torch.matmul) {product_ms:.4f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+    del AF, valid, arrays, QF
+
+    # (c) the dry run with its default placer, the proxy screen's
+    t0 = time.perf_counter()
+    with branch_env():
+        out = dryrun.dryrun_multichip(mesh, input=B3000, warmup=256,
+                                      batch_size=64)
+    torch.cuda.synchronize()
+    check(out["placer"] == "proxy" and out["placed"] == N_SAMPLES,
+          "mesh-proxy: the dry run did not place all on the proxy placer")
+    check(abs(out["lk_placement"] - out["lk_serial"]) <= PLACEMENT_LK_TOL
+          and out["minors"] == out["minors_serial"],
+          f"mesh-proxy: the dry run's placement LK {out['lk_placement']} "
+          f"differs from serial's {out['lk_serial']}")
+    check(out["genome_max_abs_diff"] <= 1e-4, "mesh-proxy: genome scorer")
+    print(f"[mesh-proxy] dryrun_multichip(placer='proxy') on b3000 in "
+          f"{time.perf_counter() - t0:.2f} s: placement LK "
+          f"{out['lk_placement']} (serial {out['lk_serial']}, delta "
+          f"{out['lk_placement'] - out['lk_serial']:.3e}), minors "
+          f"{out['minors']} (serial {out['minors_serial']}); SPR pass LK "
+          f"{out['lk_spr']}; genome mesh max |d| "
+          f"{out['genome_max_abs_diff']:.3e}")
+    print(f"[mesh-proxy] {json.dumps(report)}")
+
+
+def phase_tools(torch):
+    """Phase 17 (d): the benchmark tools at TOOL_SAMPLES synthetic samples on
+    the card (their in-tool assertions raise)."""
+    from maple_tpu_torch.tools import benchmark_device as BD
+    from maple_tpu_torch.tools import benchmark_multihost as BM
+    from maple_tpu_torch.tools import benchmark_spr_recall as BR
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="smoke_tools_") as work:
+        t0 = time.perf_counter()
+        mh = BM.benchmark(TOOL_SAMPLES, [1], [1], backend="nccl",
+                          workdir=work, screen_rows=65536)
+        check(mh["lk_identical_across_groups"]
+              and np.isfinite(mh["groups"][0]["lk"])
+              and mh["screen_strong_scaling"][0]["finite"],
+              "benchmark_multihost: no finite result")
+        print(f"[tools] benchmark_multihost, 1 NCCL rank, "
+              f"{time.perf_counter() - t0:.2f} s: {json.dumps(mh)}")
+        t0 = time.perf_counter()
+        bd = BD.benchmark(TOOL_SAMPLES, device=dev, workdir=work, spr=True)
+        check(bd["placer"] == "proxy" and np.isfinite(bd["device_lk"]),
+              "benchmark_device: no proxy placement")
+        print(f"[tools] benchmark_device --spr, "
+              f"{time.perf_counter() - t0:.2f} s: {json.dumps(bd)}")
+        t0 = time.perf_counter()
+        br = BR.benchmark(TOOL_SAMPLES, device=dev, workdir=work, cores=4,
+                          exact=True)
+        check(all(k in br for k in ("serial_pass", "device_screen_pass",
+                                    "exact_screen_pass")),
+              "benchmark_spr_recall: a pass is missing")
+        print(f"[tools] benchmark_spr_recall --exact, "
+              f"{time.perf_counter() - t0:.2f} s: {json.dumps(br)}")
 
 
 def phase_speed_of_light(torch):
@@ -1685,6 +1943,18 @@ def phase_torch_op_bounds(torch):
            ms, R * (2 * 16 * B1 * 4 + 8), 0.0)
 
 
+def device_events(prof):
+    """{name: (count, microseconds)} of the device events (kernels and
+    copies on the card) that a torch.profiler run traced."""
+    from torch.autograd import DeviceType
+    events = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = events.get(e.name, (0, 0.0))
+            events[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return events
+
+
 def phase_profile_spr(torch):
     """``--profile-spr``: torch.profiler (CPU and CUDA activities) around
     one pass of each screen on phase 7's b3000 tree, after a warm-up pass
@@ -1692,7 +1962,6 @@ def phase_profile_spr(torch):
     traced kernels and copies on the card) and its share of the wall, and
     the heaviest device kernels; for the proxy screen, the products'
     rate."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from maple_tpu_torch.parallel.proxy_features import D
     dev = torch.device("cuda")
@@ -1702,11 +1971,7 @@ def phase_profile_spr(torch):
                                    ProfilerActivity.CUDA])
         st, _, _, _, wall, _ = spr_pass(torch, dev, B3000, exact,
                                         trace=lambda: prof)
-        kernels = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                n, us = kernels.get(e.name, (0, 0.0))
-                kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        kernels = device_events(prof)
         busy = sum(us for _, us in kernels.values()) / 1e6
         check(busy > 0, f"profile {name}: no device time traced")
         print(f"[profile] {name}: {st.queries} queries x {st.anchors} "
@@ -1728,9 +1993,104 @@ def phase_profile_spr(torch):
                   f"{gemm_us / 1e3:.3f} ms of GEMM kernels)")
 
 
+def phase_profile_mesh(torch):
+    """``--profile-mesh``: b3000 UNREST placement with default flags on one
+    device, then over the 1 x 1 mesh of a 1-rank NCCL group (every step
+    through K11), each run three times: to warm up (the ``cand`` group's
+    communicator is made there), plain, and under torch.profiler (CPU and
+    CUDA activities).  For the plain and the profiled run: the steps, the
+    placer's device time between its events (``time_device``), the host
+    time spent in the step function on the screen thread (the issue of the
+    step's device work); for the profiled run also the device's busy time
+    (the kernels and copies traced on the card), by name.  Then K11 and
+    ``proxy_step`` alone at phase 17's shape: five alternating rounds of
+    CUDA-event medians, and the device events of ten calls of each."""
+    from torch.profiler import ProfilerActivity, profile
+    from maple_tpu_torch.parallel import proxy_placer as TP
+    with one_rank_mesh(torch) as mesh:
+        for label, m, name in (("single device", None, "proxy_step"),
+                               ("1 x 1 mesh", mesh, "proxy_step_sharded")):
+            step, issue = getattr(TP, name), []
+
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                out = step(*a, **kw)
+                issue.append(time.perf_counter() - t0)
+                return out
+
+            setattr(TP, name, timed)
+            try:
+                device_placement(torch, B3000, mesh=m, model="UNREST")
+                for profiled in (False, True):
+                    issue.clear()
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) \
+                        if profiled else contextlib.nullcontext()
+                    with prof:
+                        run, lk, wall = device_placement(
+                            torch, B3000, mesh=m, model="UNREST")
+                    pl = run.proxy_placer
+                    check(pl is not None and pl.steps == len(issue) > 0
+                          and (pl.pool.mesh is m),
+                          f"profile {label}: the steps did not go through "
+                          f"{name}")
+                    n = pl.steps
+                    print(f"[profile-mesh] {label}"
+                          f"{' (profiled)' if profiled else ''}: {n} steps, "
+                          f"stage {wall:.4f} s, LK {lk}; time_device "
+                          f"{pl.time_device:.4f} s "
+                          f"({1e3 * pl.time_device / n:.4f} ms a step); "
+                          f"host in {name} {sum(issue):.4f} s "
+                          f"({1e3 * sum(issue) / n:.4f} ms a step, max "
+                          f"{1e3 * max(issue):.4f} ms); time_screen "
+                          f"{pl.time_screen:.4f} s")
+                    del run
+            finally:
+                setattr(TP, name, step)
+            kernels = device_events(prof)
+            busy = sum(us for _, us in kernels.values()) / 1e6
+            check(busy > 0, f"profile {label}: no device time traced")
+            print(f"[profile-mesh] {label} (profiled): device busy "
+                  f"{busy:.4f} s ({1e3 * busy / n:.4f} ms a step); inside "
+                  f"the steps' events and not busy "
+                  f"{pl.time_device - busy:.4f} s")
+            for kname, (k, us) in sorted(kernels.items(),
+                                         key=lambda kv: -kv[1][1])[:10]:
+                print(f"[profile-mesh] {label}: {us / 1e3:.4f} ms, {k} "
+                      f"launches, {us / k:.2f} us each: {kname[:100]}")
+        K, D, cap, R, F, M = 256, 8192, 65536, 512, 64, 128
+        AF, valid, arrays = k11_inputs(torch, mesh.device, K, D, cap, R, F)
+        steps = {
+            "proxy_step": lambda: TP.proxy_step(AF, valid, *arrays, topm=M),
+            "proxy_step_sharded": lambda: TP.proxy_step_sharded(
+                mesh, AF, valid, *arrays, topm=M, cap=cap)}
+        rounds = {name: [] for name in steps}
+        for _ in range(5):
+            for name, fn in steps.items():
+                rounds[name].append(median_ms(fn, reps=10))
+        for name, ms in rounds.items():
+            print(f"[profile-mesh] {name} at K {K}, D {D}, cap {cap}, {R} "
+                  f"changed rows, top-{M}: medians of 10 by CUDA events, "
+                  f"five alternating rounds: "
+                  f"{', '.join(f'{t:.4f}' for t in ms)} ms")
+        for name, fn in steps.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            busy = sum(us for _, us in events.values()) / 10
+            print(f"[profile-mesh] {name}: device busy {busy / 1e3:.4f} ms "
+                  f"a call (ten calls traced)")
+            for ename, (k, us) in sorted(events.items(),
+                                         key=lambda kv: -kv[1][1]):
+                print(f"[profile-mesh] {name}: {us / 10e3:.4f} ms a call, "
+                      f"{k / 10:g} launches a call: {ename[:100]}")
+
+
 def main(argv):
     import torch
-    if argv not in ([], ["--profile-spr"]):
+    if argv not in ([], ["--profile-spr"], ["--profile-mesh"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1743,6 +2103,9 @@ def main(argv):
     if argv == ["--profile-spr"]:
         phase_profile_spr(torch)
         return 0
+    if argv == ["--profile-mesh"]:
+        phase_profile_mesh(torch)
+        return 0
     launches, run = phase_pipelined_path(torch)
     kern = phase_kernels(torch, run)
     del run
@@ -1750,18 +2113,21 @@ def main(argv):
     runs, by_path = phase_spr_main_path(torch)
     chunk = phase_screen_chunk(torch, phase_spr_parity(torch))
     phase_proxy_main_path(torch)
-    phase_proxy_parity(torch)
+    f32 = phase_proxy_parity(torch)
     phase_proxy_20k(torch)
     legacy_launches, legacy_label, legacy, last, pallas_stage = \
         phase_legacy(torch, b3000)
     k8 = phase_interval_algebra(torch, last)
     k8_label, k8["calls_legacy_run"] = phase_legacy_default_scorer(
         torch, b3000, pallas_stage)
-    mesh_launches, k8["mesh_scorer_calls"], tiles = phase_mesh(
-        torch, last, pallas_stage)
-    del last
+    with one_rank_mesh(torch) as mesh:
+        mesh_launches, k8["mesh_scorer_calls"], tiles = phase_mesh(
+            torch, mesh, last, pallas_stage)
+        del last
+        phase_mesh_proxy(torch, mesh, f32)
     sol = phase_speed_of_light(torch)
     phase_torch_op_bounds(torch)
+    phase_tools(torch)
     # every count below is of one run, reset just before it
     by_path["legacy"] = legacy_launches
     by_path["mesh"] = mesh_launches

@@ -123,18 +123,28 @@ def tree_signature(run) -> str:
     return h.hexdigest()
 
 
+PLACERS = ("proxy", "legacy")
+
+
 def dryrun_multichip(mesh, input=EXAMPLE, use_pallas: bool = False,
                      warmup: int = 48, batch_size: int = 16,
-                     reference_lk: float | None = None) -> dict:
+                     reference_lk: float | None = None,
+                     placer: str = "proxy") -> dict:
     """Run the device-batched placement pipeline over ``mesh`` on ``input``
-    (every rank of the mesh calls this): host-serial warmup builds a real
-    tree (MAT local references enabled), then every remaining batch is
-    scored under (dp x cand) sharding (queries data-parallel, the live
-    anchor pool candidate-parallel) and applied serially on the host with
+    (every rank of the mesh calls this): a serial warmup builds a real
+    tree, then every remaining batch is screened with the candidate axis
+    sharded over ``cand`` and applied serially on the host with
     re-validation (the reference's search-parallel / apply-serial
     contract, MAPLEv0.7.5.4.py:9470-9484).  Then one device-screened SPR
     pass over the same mesh, and the genome-axis-sharded scorer against
     the replicated-table scorer.
+
+    ``placer`` picks the placement: ``"proxy"`` (the default, the JAX
+    package's path with default flags: the proxy screen's feature pool
+    sharded by candidate, the C++ engine's seeded placement; ``use_pallas``
+    does not apply to it) or ``"legacy"`` (``MAPLE_DEVICE_LEGACY=1`` for
+    the placement: the batch placer's scorer tiled (dp x cand), the pair
+    kernel with ``use_pallas``, else the interval-algebra scorer).
 
     Asserts that the tree accounts for every sample, that its likelihood
     is within ``PLACEMENT_TOL`` of the serial stepwise path's (reported
@@ -144,21 +154,18 @@ def dryrun_multichip(mesh, input=EXAMPLE, use_pallas: bool = False,
     land a few log-units off serial: there the caller gives
     ``reference_lk``, the placement likelihood of the single-device legacy
     placer on the same input and scorer, and the mesh run is held to that
-    instead.  Returns what it measured.
-
-    The placement is pinned to the legacy batch placer
-    (``MAPLE_DEVICE_LEGACY=1``): the proxy screen over a mesh is not
-    ported."""
+    instead.  Returns what it measured."""
     from .config import MapleConfig
     from .pipeline import Run
     from .ops.append_pairs import append_scores_prestacked
 
+    if placer not in PLACERS:
+        raise ValueError(f"placer {placer!r} (one of {PLACERS})")
     out = {"mesh": dict(mesh.shape), "rank": mesh.rank,
-           "use_pallas": bool(use_pallas)}
-    saved = os.environ.get("MAPLE_DEVICE_LEGACY")
-    os.environ["MAPLE_DEVICE_LEGACY"] = "1"
-    print("dryrun_multichip: MAPLE_DEVICE_LEGACY=1 pinned for the placement "
-          "(the proxy screen over a mesh is not ported)", flush=True)
+           "use_pallas": bool(use_pallas), "placer": placer}
+    saved = os.environ.pop("MAPLE_DEVICE_LEGACY", None)
+    if placer == "legacy":
+        os.environ["MAPLE_DEVICE_LEGACY"] = "1"
     launches0 = append_scores_prestacked.launches
     try:
         with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
@@ -173,6 +180,10 @@ def dryrun_multichip(mesh, input=EXAMPLE, use_pallas: bool = False,
             run_dev.build_initial_tree_device(warmup=warmup,
                                               batch_size=batch_size,
                                               mesh=mesh)
+            ran = run_dev.proxy_placer if placer == "proxy" \
+                else run_dev.legacy_placer
+            _check(ran is not None and ran.pool.mesh is mesh,
+                   f"the {placer} placer did not run over the mesh")
             run_dev.rt.recalculate_all(run_dev.root)
             lk_dev = run_dev.rt.calculate_tree_likelihood(run_dev.root)
             out["placement_launches"] = \
@@ -188,9 +199,8 @@ def dryrun_multichip(mesh, input=EXAMPLE, use_pallas: bool = False,
             run_ser.rt.recalculate_all(run_ser.root)
             lk_ser = run_ser.rt.calculate_tree_likelihood(run_ser.root)
     finally:
-        if saved is None:
-            del os.environ["MAPLE_DEVICE_LEGACY"]
-        else:
+        os.environ.pop("MAPLE_DEVICE_LEGACY", None)
+        if saved is not None:
             os.environ["MAPLE_DEVICE_LEGACY"] = saved
 
     n_dev, n_ser = placed(run_dev), placed(run_ser)
@@ -263,7 +273,7 @@ def dryrun_multichip(mesh, input=EXAMPLE, use_pallas: bool = False,
     return out
 
 
-def _rank_entry(rank, device, input, use_pallas, warmup, batch_size):
+def _rank_entry(rank, device, input, use_pallas, warmup, batch_size, placer):
     """One rank of ``main``: the forward step on its device, then the dry
     run over the mesh of all ranks."""
     from .parallel.mesh import make_mesh
@@ -273,11 +283,12 @@ def _rank_entry(rank, device, input, use_pallas, warmup, batch_size):
         print("entry() forward:", first, "...", flush=True)
     mesh = make_mesh(device=device)
     return dryrun_multichip(mesh, input=input, use_pallas=use_pallas,
-                            warmup=warmup, batch_size=batch_size)
+                            warmup=warmup, batch_size=batch_size,
+                            placer=placer)
 
 
 def main(argv=None) -> int:
-    from .parallel.ranks import run_ranks
+    from .parallel.ranks import backend_error, card_count, run_ranks
     ap = argparse.ArgumentParser(
         prog="python3 -m maple_tpu_torch.dryrun", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -289,38 +300,36 @@ def main(argv=None) -> int:
                     "card; with gloo, 4)")
     ap.add_argument("--input", default=EXAMPLE,
                     help="alignment in MAPLE format")
+    ap.add_argument("--placer", choices=PLACERS, default="proxy",
+                    help="proxy: the proxy screen's pool sharded by "
+                    "candidate (the default); legacy: the batch placer's "
+                    "scorer tiled over the mesh")
     ap.add_argument("--pallas", action="store_true",
-                    help="score placement tiles with the pair kernel")
+                    help="score the legacy placer's tiles and the mesh SPR "
+                    "screen with the pair kernel")
     ap.add_argument("--warmup", type=int, default=48)
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--timeout", type=float, default=RANK_TIMEOUT,
                     help="seconds every rank may take")
     args = ap.parse_args(argv)
-    if args.backend == "nccl":
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if not cards:
-            print("dryrun: no CUDA device (the CPU takes --backend gloo)",
-                  file=sys.stderr)
-            return 2
-        if args.procs is None:
-            args.procs = cards
-        if args.procs > cards:
-            print(f"dryrun: {args.procs} NCCL ranks on {cards} card(s)",
-                  file=sys.stderr)
-            return 2
-    elif args.procs is None:
-        args.procs = 4
+    if args.procs is None:
+        args.procs = card_count() if args.backend == "nccl" else 4
+    err = backend_error(args.backend, args.procs)
+    if err:
+        print(f"dryrun: {err}", file=sys.stderr)
+        return 2
     results = run_ranks(_rank_entry, args.procs, backend=args.backend,
                         timeout=args.timeout,
                         args=(args.input, args.pallas, args.warmup,
-                              args.batch_size))
+                              args.batch_size, args.placer))
     same = {r["signature"] for r in results}
     if len(same) != 1:
         print(f"dryrun: the ranks ended on {len(same)} different trees",
               file=sys.stderr)
         return 1
     r = results[0]
-    print(f"dryrun: {args.procs} {args.backend} ranks, mesh {r['mesh']}: "
+    print(f"dryrun: {args.procs} {args.backend} ranks, mesh {r['mesh']}, "
+          f"{r['placer']} placer: "
           f"every rank on the same tree; placement LK {r['lk_placement']} "
           f"(serial {r['lk_serial']}), after the SPR pass {r['lk_spr']}")
     return 0

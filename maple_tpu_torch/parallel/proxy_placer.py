@@ -32,6 +32,16 @@ single screen thread, on the pool's own CUDA stream; a step's results go to
 pinned host buffers behind an event recorded on that stream, and ``_fetch``
 waits on that event, never on the device as a whole.
 
+Over a (dp x cand) mesh of ``torch.distributed`` ranks
+(:mod:`maple_tpu_torch.parallel.mesh`) the pool's rows shard over ``cand``:
+each rank holds ``cap / cand`` of them, and :func:`proxy_step_sharded`
+scatters the rows it owns, scores every query against its slice and merges
+the ranks' top-M winners.  The engine, the tree and the apply stay
+replicated: every rank runs the same host pipeline on the same merged
+result.  The screen thread is the only one that queues a collective, inside
+``on_stream()``: a collective is ordered after the current stream, which is
+what orders the gather after the local top-k.
+
 Reference contract being replaced: the strictly serial stepwise addition
 loop, MAPLEv0.7.5.4.py:11692-11752 with the per-sample DFS at :7912-8293.
 """
@@ -45,6 +55,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .proxy_features import (BF16_CAP, BF16_TOPM, FMAX_ANCHOR, FMAX_QUERY,
                              _f_bucket, feature_dims, proxy_scores,
@@ -72,6 +83,62 @@ def proxy_step(AF, valid, upd_idx, upd_fidx, upd_fw, upd_valid,
     return torch.topk(scores, min(topm, AF.shape[0]), dim=1)
 
 
+def local_updates(mesh, cap, upd_idx, upd_fidx, upd_fw, upd_valid):
+    """One step's host update arrays (numpy, global rows of a pool of
+    ``cap``) cut to the rows this rank holds over ``mesh``'s ``cand`` axis,
+    numbered from its first row: the updates :func:`proxy_step_sharded`
+    takes.  Only they are uploaded."""
+    rows = _local_rows(cap, mesh)
+    base = mesh.coords["cand"] * rows
+    own = (upd_idx >= base) & (upd_idx < base + rows)
+    return upd_idx[own] - base, upd_fidx[own], upd_fw[own], upd_valid[own]
+
+
+def proxy_step_sharded(mesh, AF, valid, upd_idx, upd_fidx, upd_fw,
+                       upd_valid, q_fidx, q_fw, *, topm: int, cap: int):
+    """:func:`proxy_step` over a pool whose ``cap`` rows shard over the
+    mesh's ``cand`` axis.  Twin of ``_proxy_step`` of the JAX package on a
+    pool laid out ``P("cand", None)``, and of the hand-written screen of
+    its ``scripts/multihost_screen_worker.py`` (``_shard_screen``).
+
+    ``AF`` [cap / cand, D] and ``valid`` [cap / cand] are this rank's rows
+    (global row ``r`` lives on cand coordinate ``r // (cap / cand)``); the
+    updates are this rank's, numbered from its first row
+    (:func:`local_updates`); the queries are the same on every rank.  A
+    rank runs :func:`proxy_step` on its slice (a slice of fewer rows than M
+    pads its winners with -inf and row -1), and the ``cand`` group
+    all-gathers the ``[K, M]`` winners with their global rows; the top-M of
+    the ``[K, M * cand]`` gathered winners is the result.  Gathering the
+    winners and not the ``[K, cap]`` scores is the design of the JAX worker
+    (1.29x at 2 processes with the full scores gathered, 1.8x and more with
+    the merge, on its CPU mesh).  Every rank of a group merges the same
+    gathered tensors, so all return the same bits; ranks along ``dp``
+    repeat the screen.  Returns float32 (scores [K, M], global rows [K, M],
+    int64) with M = min(topm, cap)."""
+    rows = _local_rows(cap, mesh)
+    if AF.shape[0] != rows:
+        raise ValueError(f"{AF.shape[0]} local rows: a pool of {cap} over "
+                         f"{mesh.shape['cand']} cand ranks holds {rows}")
+    m = min(topm, cap)
+    ts, ti = proxy_step(AF, valid, upd_idx, upd_fidx, upd_fw, upd_valid,
+                        q_fidx, q_fw, topm=m)
+    ti = ti + mesh.coords["cand"] * rows
+    if ts.shape[1] < m:
+        pad = (ts.shape[0], m - ts.shape[1])
+        ts = torch.cat([ts, ts.new_full(pad, float("-inf"))], dim=1)
+        ti = torch.cat([ti, ti.new_full(pad, -1)], dim=1)
+    cand = mesh.shape["cand"]
+    group = mesh.axis_groups["cand"]
+    all_ts = [torch.empty_like(ts) for _ in range(cand)]
+    all_ti = [torch.empty_like(ti) for _ in range(cand)]
+    dist.all_gather(all_ts, ts, group=group)
+    dist.all_gather(all_ti, ti, group=group)
+    if cand == 1:   # one slice: its winners are the top-M, in order
+        return all_ts[0], all_ti[0]
+    ts, sel = torch.topk(torch.cat(all_ts, dim=1), m, dim=1)
+    return ts, torch.cat(all_ti, dim=1).gather(1, sel)
+
+
 class ProxyPool:
     """Device-resident anchor feature matrix with persistent rows.
 
@@ -79,15 +146,21 @@ class ProxyPool:
     ineligible nodes are re-exported/invalidated via the engine's
     changed-node log.  Capacity is fixed up front from the expected sample
     count (2 nodes per placed sample).  On CUDA the pool owns the stream
-    its tensors are made and used on."""
+    its tensors are made and used on.
+
+    With a ``mesh`` the tensors hold this rank's ``capacity / cand`` rows
+    on ``device`` (the mesh's); ``capacity``, ``node_arr`` and ``row_of``
+    stay global and equal on every rank."""
 
     def __init__(self, expected_nodes: int, device: torch.device,
-                 force_bf16: bool = False, fast: bool = False):
+                 force_bf16: bool = False, fast: bool = False, mesh=None):
         cap = 1024
         while cap < expected_nodes:
             cap *= 2
         self.capacity = cap
         self.device = torch.device(device)
+        self.mesh = mesh
+        rows = _local_rows(cap, mesh)
         self.d_hash, self.g_buckets = feature_dims(cap, fast)
         self.D = self.d_hash + self.g_buckets
         self.node_arr = np.full(cap, -1, dtype=np.int64)
@@ -104,9 +177,9 @@ class ProxyPool:
         self.stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
         with self.on_stream():
-            self.AF = torch.zeros((cap, self.D), dtype=dtype,
+            self.AF = torch.zeros((rows, self.D), dtype=dtype,
                                   device=self.device)
-            self.valid = torch.zeros(cap, dtype=torch.bool,
+            self.valid = torch.zeros(rows, dtype=torch.bool,
                                      device=self.device)
 
     def on_stream(self):
@@ -133,30 +206,47 @@ class ProxyPool:
         return rows
 
 
+def _local_rows(cap: int, mesh) -> int:
+    """The pool rows one rank holds: all of them without a mesh."""
+    if mesh is None:
+        return cap
+    cand = mesh.shape["cand"]
+    if cap % cand:
+        raise ValueError(f"a pool of {cap} rows does not divide over the "
+                         f"{cand} ranks of mesh axis 'cand'")
+    return cap // cand
+
+
 def pool_from_numpy(AF, valid, row_of, node_arr, *, device: torch.device,
-                    dtype: torch.dtype, d_hash: int,
-                    g_buckets: int) -> ProxyPool:
+                    dtype: torch.dtype, d_hash: int, g_buckets: int,
+                    mesh=None) -> ProxyPool:
     """A ProxyPool holding the given state: ``AF`` [cap, D] float32 values
     (stored as ``dtype``), ``valid`` [cap] bool, the node -> row map and
-    the row -> node array.  It starts both sides of a comparison from one
-    state."""
-    AF = np.array(AF, dtype=np.float32)   # a writable copy
+    the row -> node array; with a ``mesh``, this rank's rows of them.  It
+    starts both sides of a comparison from one state."""
+    AF = np.asarray(AF, dtype=np.float32)
     pool = ProxyPool.__new__(ProxyPool)
     pool.capacity = AF.shape[0]
     pool.device = torch.device(device)
+    pool.mesh = mesh
     pool.d_hash, pool.g_buckets = d_hash, g_buckets
     pool.D = d_hash + g_buckets
     if AF.shape[1] != pool.D:
         raise ValueError(f"AF has {AF.shape[1]} columns, the feature space "
                          f"{pool.D}")
+    rows = _local_rows(pool.capacity, mesh)
+    base = 0 if mesh is None else mesh.coords["cand"] * rows
+    own = slice(base, base + rows)
     pool.node_arr = np.array(node_arr, dtype=np.int64)
     pool.row_of = {int(k): int(v) for k, v in row_of.items()}
     pool.stream = torch.cuda.Stream(pool.device) \
         if pool.device.type == "cuda" else None
     with pool.on_stream():
-        pool.AF = torch.from_numpy(AF).to(pool.device, dtype=dtype)
+        # a writable copy of the rows this rank holds
+        pool.AF = torch.from_numpy(np.array(AF[own])).to(pool.device,
+                                                         dtype=dtype)
         pool.valid = torch.from_numpy(
-            np.array(valid, dtype=bool)).to(pool.device)
+            np.array(np.asarray(valid)[own], dtype=bool)).to(pool.device)
     return pool
 
 
@@ -172,12 +262,14 @@ class _Screen(NamedTuple):
 
 
 class EngineProxyPlacer:
-    """Drives device-screened, engine-applied stepwise addition."""
+    """Drives device-screened, engine-applied stepwise addition.  With a
+    ``mesh`` (whose device is ``device``) the pool shards over its ``cand``
+    axis and every step is :func:`proxy_step_sharded`."""
 
     def __init__(self, run, eng, num_cores: int = 1,
                  batch_size: int = 256, topm: int = 64,
                  seed_budget: int = 48, *, device: torch.device,
-                 fast_screen: bool = False):
+                 fast_screen: bool = False, mesh=None):
         self.run = run
         self.eng = eng
         self.num_cores = max(1, num_cores)
@@ -197,7 +289,7 @@ class EngineProxyPlacer:
         self.fmax_query = FMAX_QUERY
         n_expected = len(run.data) * 2 + 64
         self.pool = ProxyPool(n_expected, device, force_bf16=fast_screen,
-                              fast=fast_screen)
+                              fast=fast_screen, mesh=mesh)
         if self.pool.AF.dtype == torch.bfloat16 and self.topm < BF16_TOPM \
                 and not fast_screen:
             # bf16 rounding reorders near-ties; a deeper seed list
@@ -274,19 +366,24 @@ class EngineProxyPlacer:
         only."""
         pool = self.pool
         device = pool.device
-        rows, aidx, aw, avalid = sync
         qidx, qw = self._export_queries(vids)
         t0 = time.time()
+        rows, aidx, aw, avalid = sync if pool.mesh is None \
+            else local_updates(pool.mesh, pool.capacity, *sync)
         start = done = None
         with pool.on_stream():
             if pool.stream is not None:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
-            ts, ti = proxy_step(
-                pool.AF, pool.valid, upload(rows, device),
-                upload(aidx, device), upload(aw, device),
-                upload(avalid, device), upload(qidx, device),
-                upload(qw, device), topm=self.topm)
+            args = (pool.AF, pool.valid, upload(rows, device),
+                    upload(aidx, device), upload(aw, device),
+                    upload(avalid, device), upload(qidx, device),
+                    upload(qw, device))
+            if pool.mesh is None:
+                ts, ti = proxy_step(*args, topm=self.topm)
+            else:
+                ts, ti = proxy_step_sharded(pool.mesh, *args, topm=self.topm,
+                                            cap=pool.capacity)
             ts, ti = to_host(ts, ti)
             if pool.stream is not None:
                 done = torch.cuda.Event(enable_timing=True)

@@ -16,6 +16,7 @@ import multiprocessing
 import socket
 import time
 import traceback
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -33,6 +34,22 @@ def rank_device(backend: str, rank: int) -> torch.device:
     if backend == "nccl":
         return torch.device("cuda", rank)
     raise ValueError(f"backend {backend!r} (gloo or nccl)")
+
+
+def card_count() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def backend_error(backend: str, procs: int) -> Optional[str]:
+    """Why ``procs`` ranks cannot run on ``backend`` on this host, or None:
+    an NCCL rank is one card; gloo ranks take the CPU."""
+    if backend == "nccl":
+        cards = card_count()
+        if not cards:
+            return "no CUDA device (the CPU takes --backend gloo)"
+        if procs > cards:
+            return f"{procs} NCCL ranks on {cards} card(s)"
+    return None
 
 
 def init_group(backend: str, rank: int, world: int, port: int,

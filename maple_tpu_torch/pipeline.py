@@ -12,8 +12,8 @@ three branches, all of them here: the proxy screen feeding the C++ engine
 placer (``MAPLE_DEVICE_RT=1``, error-model runs, python kernels) and the
 legacy batch placer (``MAPLE_DEVICE_LEGACY=1``: the interval-algebra scorer,
 or the pair kernel with ``--devicePallas``).  Over a mesh of ranks
-(:mod:`maple_tpu_torch.parallel.mesh`) the legacy placer runs, sharded;
-the proxy branch over a mesh raises.
+(:mod:`maple_tpu_torch.parallel.mesh`) the proxy branch shards its pool by
+candidate, and the other branches take the legacy placer, sharded.
 """
 from __future__ import annotations
 
@@ -38,13 +38,6 @@ from .runtime.tree import (PhyloTree, give_internal_node_names,
 from .search.blen import optimize_branch_lengths
 from .search.placement import (PlacementStats, find_best_parent_for_new_sample,
                                place_sample_on_tree)
-
-
-MESH_PROXY_NOT_PORTED = (
-    "maple_tpu_torch: the proxy screen over a mesh of devices is not "
-    "ported yet; ROADMAP.md Queue 1 item 6b (the proxy pool sharded by "
-    "candidate) ports it.  Set MAPLE_DEVICE_LEGACY=1 (or MAPLE_DEVICE_RT=1) "
-    "to place over the mesh with the legacy batch placer.")
 
 
 class TraceState:
@@ -520,9 +513,11 @@ class Run:
         return root
 
     def _build_initial_tree_engine_device(self, distances, first_sample,
+                                          mesh=None,
                                           warmup=None) -> int:
         """Production device path: serial engine warmup, then the proxy
-        screen on ``self.device`` feeding the engine's seeded batched
+        screen on ``self.device`` (over ``mesh``, on its device, with the
+        pool sharded by candidate) feeding the engine's seeded batched
         placement (maple_tpu_torch/parallel/proxy_placer.py module
         docstring).  Model refreshes, checkpoints, and progress prints keep
         the serial cadence (reference :11686-11760)."""
@@ -546,8 +541,9 @@ class Run:
             EngineProxyPlacer, self, eng, num_cores=cfg.numCores,
             batch_size=cfg.device_proxy_batch,
             topm=cfg.device_seed_topm,
-            seed_budget=cfg.device_seed_budget, device=self.device,
-            fast_screen=cfg.fast)
+            seed_budget=cfg.device_seed_budget,
+            device=self.device if mesh is None else mesh.device,
+            fast_screen=cfg.fast, mesh=mesh)
         while distances and num_samples < warmup:
             if num_samples % upd == 0 and cfg.model != "JC":
                 eng.flush_pseudo_counts(self.model.pseudo_counts)
@@ -593,11 +589,11 @@ class Run:
         scoring with the exact host fine phase: the pipelined placer
         (maple_tpu_torch.parallel.pipelined_placer), or with
         MAPLE_DEVICE_LEGACY the legacy batch placer
-        (maple_tpu_torch.parallel.batch_placement).  ``mesh`` shards the
-        legacy placer's scoring over a (dp, cand) mesh of ranks
-        (maple_tpu_torch.parallel.mesh): queries data-parallel, the anchor
-        pool candidate-parallel; where the proxy branch would be taken, a
-        mesh raises."""
+        (maple_tpu_torch.parallel.batch_placement).  ``mesh`` is a (dp, cand)
+        mesh of ranks (maple_tpu_torch.parallel.mesh): the proxy branch
+        shards its anchor-feature pool over ``cand``; otherwise the legacy
+        placer scores over it, queries data-parallel, the anchor pool
+        candidate-parallel."""
         cfg = self.cfg
         dc = self.dc
         distances = self.sorted_distances()
@@ -622,11 +618,11 @@ class Run:
             # the engine refuses batched applies there).  The caller's
             # ``warmup`` is honored; ``batch_size`` is the rt-based
             # placers' knob and does not apply — the proxy screen
-            # batches by cfg.device_proxy_batch.
-            if mesh is not None:
-                raise NotImplementedError(MESH_PROXY_NOT_PORTED)
+            # batches by cfg.device_proxy_batch.  With a mesh the anchor-
+            # feature pool shards over the candidate axis (replicated
+            # tree, sharded screen).
             self.root = self._build_initial_tree_engine_device(
-                distances, first_sample, warmup=warmup)
+                distances, first_sample, mesh=mesh, warmup=warmup)
             return
         # a mesh takes the legacy placer: the pipelined one is single-device
         legacy = legacy or mesh is not None

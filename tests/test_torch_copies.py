@@ -60,12 +60,12 @@ MANIFEST = {
     "native/engine.py": ALL,
     "ops/pack.py": ALL,
     # the run takes a device; --devicePlacement's branches are the port's
-    # (build_initial_tree_device: a mesh takes the legacy placer on the
-    # mesh's device, the proxy branch over a mesh raises)
+    # (build_initial_tree_device: the proxy placer over a mesh on the
+    # mesh's device, the other branches take the legacy placer there)
     "pipeline.py": dict(
         changed=["Run.__init__", "Run._build_initial_tree_engine_device",
                  "Run.build_initial_tree_device", "run_inference"],
-        added=["MESH_PROXY_NOT_PORTED"]),
+        added=[]),
     # main: the program's name, the CUDA check, the device
     "cli.py": dict(changed=["main"], added=["_FLAG_FIELDS"]),
     # the device SPR screen runs on run.device

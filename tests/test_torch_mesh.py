@@ -139,10 +139,11 @@ def genome_mesh_rank(rank, device, payload):
                 gmesh, P, Q, payload["blen"], dm))}
 
 
-def dryrun_rank(rank, device, use_pallas):
+def dryrun_rank(rank, device, use_pallas, placer):
     from maple_tpu_torch.dryrun import dryrun_multichip
     mesh = TM.make_mesh(4, dp=2, device=device)
-    return dryrun_multichip(mesh, input=SUB80, use_pallas=use_pallas)
+    return dryrun_multichip(mesh, input=SUB80, use_pallas=use_pallas,
+                            placer=placer)
 
 
 # ----------------------------------------------------------------------
@@ -358,20 +359,26 @@ def serial_lk(tmp_path_factory):
     return lk, run.stats.num_minors_found
 
 
-@pytest.mark.parametrize("use_pallas", [False, True], ids=["k8", "k1"])
-def test_dryrun_multichip_2x2(use_pallas, serial_lk, monkeypatch,
+@pytest.mark.parametrize("use_pallas,placer", [
+    (False, "legacy"), (True, "legacy"), (False, "proxy")],
+    ids=["k8", "k1", "proxy"])
+def test_dryrun_multichip_2x2(use_pallas, placer, serial_lk, monkeypatch,
                               tmp_path):
     """The slice as a whole on 2 x 2 gloo ranks on example_sub80: every
     rank ends on the same tree, the placement LK is serial's, the mesh SPR
     pass does not lower it, the genome-sharded scorer agrees, and the LK
-    is maple_tpu's own legacy mesh run's on its virtual 2 x 2 mesh."""
+    is maple_tpu's own run of the same placer on its virtual 2 x 2 mesh
+    (the legacy placer under MAPLE_DEVICE_LEGACY=1; the proxy placer, its
+    default, with no variable set)."""
+    monkeypatch.delenv("MAPLE_DEVICE_LEGACY", raising=False)
     results = run_ranks(dryrun_rank, 4, backend="gloo",
-                        timeout=RANK_TIMEOUT, args=(use_pallas,))
+                        timeout=RANK_TIMEOUT, args=(use_pallas, placer))
     lk_ser, minors_ser = serial_lk
     assert len({r["signature"] for r in results}) == 1
     assert len({r["placement_signature"] for r in results}) == 1
     for rank, r in enumerate(results):
         assert r["rank"] == rank and r["mesh"] == {"dp": 2, "cand": 2}
+        assert r["placer"] == placer
         assert r["placed"] == 80 and r["minors"] == minors_ser
         assert abs(r["lk_placement"] - lk_ser) <= PLACEMENT_TOL
         assert abs(r["lk_serial"] - lk_ser) <= PLACEMENT_TOL
@@ -380,16 +387,20 @@ def test_dryrun_multichip_2x2(use_pallas, serial_lk, monkeypatch,
         assert r["genome_max_abs_diff"] <= 1e-4
         # on CPU tensors the pair kernel's wrapper runs its plain version
         assert r["launches"] == 0
-    # maple_tpu's legacy placer over its virtual mesh, the same arguments
+    # maple_tpu's placer over its virtual mesh, the same arguments
     from maple_tpu.parallel.mesh import make_mesh
     from test_torch_proxy_placer import make_run, placement_lk
-    monkeypatch.setenv("MAPLE_DEVICE_LEGACY", "1")
+    if placer == "legacy":
+        monkeypatch.setenv("MAPLE_DEVICE_LEGACY", "1")
     run_j = make_run("maple_tpu", tmp_path, input=SUB80, model="GTR",
                      device_placement=True, device_pallas=use_pallas)
     run_j.build_initial_tree_device(warmup=48, batch_size=16,
                                     mesh=make_mesh(4, dp=2))
-    assert abs(results[0]["lk_placement"] - placement_lk(run_j)) \
-        <= SCORER_TOL
+    assert hasattr(run_j, "proxy_placer") == (placer == "proxy")
+    # the proxy placer is exact on both sides; the legacy ones are float32
+    # screens of two programs
+    tol = PLACEMENT_TOL if placer == "proxy" else SCORER_TOL
+    assert abs(results[0]["lk_placement"] - placement_lk(run_j)) <= tol
 
 
 def test_rank_failure_and_timeout_are_reported():

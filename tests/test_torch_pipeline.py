@@ -2,8 +2,9 @@
 
 The whole ``--devicePlacement`` run (placement, EM, root search, SPR,
 outputs) through each of its branches against maple_tpu's serial pipeline
-on the same flags; the port never importing jax or maple_tpu; and what is
-not ported yet raising instead of falling back.
+on the same flags; the port never importing jax or maple_tpu; the command
+line refusing to run without CUDA.  The branches over a mesh of ranks are
+in ``test_torch_mesh.py`` and ``test_torch_mesh_proxy.py``.
 """
 import os
 import re
@@ -19,7 +20,7 @@ from maple_tpu.pipeline import run_inference as serial_inference
 
 from maple_tpu_torch import cli
 from maple_tpu_torch.config import MapleConfig
-from maple_tpu_torch.pipeline import MESH_PROXY_NOT_PORTED, Run, run_inference
+from maple_tpu_torch.pipeline import run_inference
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -159,28 +160,6 @@ def test_cli_raises_without_cuda(tmp_path, monkeypatch):
         cli.main(["--input", SUB80, "--output", str(tmp_path / "x"),
                   "--devicePlacement"])
     assert not os.path.exists(str(tmp_path / "x") + "_tree.tree")
-
-
-@pytest.mark.parametrize("env,mesh,message,item", [
-    ({}, object(), MESH_PROXY_NOT_PORTED, "Queue 1 item 6b")],
-    ids=["mesh-proxy"])
-def test_unported_branches_raise(tmp_path, monkeypatch, env, mesh, message,
-                                 item):
-    """The proxy branch over a mesh (default flags, native kernels) raises,
-    naming the ROADMAP item; no host fallback and no quiet switch to
-    another placer."""
-    for name in BRANCH_ENV:
-        monkeypatch.delenv(name, raising=False)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    run = Run(MapleConfig(input=SUB80, output=str(tmp_path / "x"),
-                          device_placement=True), CPU)
-    run.load()
-    with pytest.raises(NotImplementedError) as exc:
-        run.build_initial_tree_device(warmup=16, batch_size=16, mesh=mesh)
-    assert str(exc.value) == message
-    assert item in message
-    assert run.legacy_placer is None and run.proxy_placer is None
 
 
 def test_package_source_has_no_jax_import():
