@@ -105,9 +105,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      b3000: the placement LK serial's within 1e-6; after phase 16, (d) the
      tools at 2,000 synthetic samples on the card: ``benchmark_multihost``
      (one NCCL rank, its own process), ``benchmark_device --spr`` and
-     ``benchmark_spr_recall --exact``.  Its numbers are on ``[mesh-proxy]``
-     and ``[tools]`` lines, K11's as one JSON object; K11 is torch ops and
-     a collective, no hand kernel, and stays out of the kernel report.
+     ``benchmark_spr_recall --exact``; then at 1,000 (seed 1), each in its
+     own process, ``benchmark_scale --devicePlacement`` (the --fast
+     preset: seq/s, LK, nRF) and ``benchmark_support``'s
+     ``run_calibration`` with ``device_placement`` (supported branches and
+     the top bin).  Its numbers are on ``[mesh-proxy]`` and ``[tools]``
+     lines, K11's as one JSON object; K11 is torch ops and a collective,
+     no hand kernel, and stays out of the kernel report;
+ 18. the batched branch-length optimiser (K10, ``ops/blen_batch.py``:
+     golden section on the interval-algebra scorer, 36 scorer calls a
+     call) on 4,096 seeded nodes of the serial b3000 tree (UNREST): the
+     vector above each node with its lower vector and tip flag.  float64
+     on the card against float64 on the CPU (lengths within 4 sens, or no
+     worse by the host kernel ``append_prob_node``; scores within 1e-9
+     where the lengths are equal); the first 256 lengths against the host
+     kernel's bisection (``estimate_branch_length``: within 4 sens or no
+     worse by 1e-7); float32 scores against float64 (rtol 2e-4, atol
+     2e-3, the same -inf cells); both float types timed (CUDA events,
+     median of 10) beside ``speed_of_light.paired_work_model``'s bound;
+     how many lengths are 0, interior and 0.1.  On ``[blen]`` lines; K10
+     is torch ops, no hand kernel, and stays out of the kernel report.
 The line before the last is the card's name and power limit, the one
 before it the kernel report, and the last line the result.  In the
 kernel report, ``ms`` is the merge-walk kernel's time (one wrapper call:
@@ -174,6 +191,10 @@ BRANCH_ENV = ("MAPLE_DEVICE_RT", "MAPLE_DEVICE_LEGACY", "MAPLE_PROXY_BF16",
               "MAPLE_PROXY_D", "MAPLE_SPR_EXACT")
 SYN_SAMPLES, SYN_SEED = 20000, 1
 TOOL_SAMPLES = 2000                  # synthetic samples of phase 17's tools
+TWIN_TOOL_SAMPLES = 1000             # ... of the scale and support tools
+BLEN_PAIRS, BLEN_HOST_PAIRS = 4096, 256  # phase 18: pairs, host-checked
+BLEN_HOST_LK_TOL = 1e-7              # tests/test_blen_batch.py:83
+BLEN_LK_TOL = 1e-9                   # the card's length against the CPU's
 F64_REL = 1e-9                       # kernel vs plain, both float64
 K8_F32_RTOL, K8_F32_ATOL = 2e-4, 2e-3  # float32 scores of two scorers
                                      # (tests/test_mesh_pallas.py:71-72)
@@ -1876,6 +1897,193 @@ def phase_tools(torch):
               "benchmark_spr_recall: a pass is missing")
         print(f"[tools] benchmark_spr_recall --exact, "
               f"{time.perf_counter() - t0:.2f} s: {json.dumps(br)}")
+        phase_twin_tools(work)
+
+
+def run_tool(argv, what):
+    """A tool in a process of its own from the checkout; its wall."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable] + argv, cwd=HERE,
+                         capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0,
+          f"{what}: exit {out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def phase_twin_tools(work):
+    """Phase 17 (d), continued: the scale and support tools at
+    TWIN_TOOL_SAMPLES synthetic samples (seed 1), each in its own
+    process, on the card's placement path."""
+    n = TWIN_TOOL_SAMPLES
+    _, wall = run_tool(
+        ["-m", "maple_tpu_torch.tools.benchmark_scale", "--sizes", str(n),
+         "--devicePlacement", "--workdir", work], "benchmark_scale")
+    with open(os.path.join(work, "scale_results.jsonl")) as f:
+        row = json.loads(f.read().splitlines()[-1])
+    check(row["samples"] == n and np.isfinite(row["lk"])
+          and row["device"] != "cpu" and row["placement_seq_per_s"] > 0,
+          f"benchmark_scale: {row}")
+    print(f"[tools] benchmark_scale --devicePlacement (--fast), {n} samples, "
+          f"process {wall:.2f} s: {row['placement_seq_per_s']} seq/s, LK "
+          f"{row['lk']}, nRF {row['normalised_rf']}: {json.dumps(row)}")
+    code = (
+        "import json, os, torch\n"
+        "from maple_tpu_torch.tools.benchmark_support import "
+        "run_calibration\n"
+        "from maple_tpu_torch.tools.common import ensure_dataset\n"
+        f"work = {work!r}\n"
+        f"aln, truth = ensure_dataset(work, {n}, 1, 1.5, 0.2, 0.05)\n"
+        "rows, n = run_calibration(aln, truth, os.path.join(work, 'sup'), "
+        "{'device_placement': True}, device=torch.device('cuda'))\n"
+        "print(json.dumps({'n_supported': n, 'rows': rows}))\n")
+    out, wall = run_tool(["-c", code], "benchmark_support")
+    sup = json.loads(out.splitlines()[-1])
+    top = [r for r in sup["rows"] if r[2] > 0][-1]
+    check(sup["n_supported"] > 0 and top[0] >= 0.95,
+          f"benchmark_support: {sup}")
+    print(f"[tools] benchmark_support, device_placement, {n} samples, "
+          f"process {wall:.2f} s: n_supported {sup['n_supported']}, top "
+          f"bin [{top[0]}, {top[1]}): {top[2]} branches, {top[3]:.4f} "
+          f"correct, mean support {top[4]:.6f}")
+
+
+def blen_pairs(run, n, seed=17):
+    """``n`` seeded non-root nodes of ``run``'s tree: (the vector above
+    the node, the node's lower vector, its tip flag), as genome lists."""
+    tree, rt = run.tree, run.rt
+    stack, nodes = [run.root], []
+    while stack:
+        v = stack.pop()
+        stack.extend(tree.children[v])
+        if v != run.root:
+            nodes.append(v)
+    check(len(nodes) >= n, f"the tree has {len(nodes)} nodes below the root")
+    out = []
+    for i in np.random.default_rng(seed).choice(len(nodes), n,
+                                                replace=False):
+        v = nodes[i]
+        up_vect = tree.vect_up_for(v)
+        if tree.mutations[v]:
+            up_vect = rt.pass_down(up_vect, v)
+        out.append((rt.kern.export(up_vect), rt.kern.export(tree.probVect[v]),
+                    tree.is_tip(v)))
+    return out
+
+
+def blen_check(torch, run, dev, n_pairs, n_host):
+    """K10 on ``dev`` against the CPU in float64 (lengths within 4 sens or
+    no worse by the host kernel; scores within F64_REL where the lengths
+    are equal), its first ``n_host`` lengths against the host kernel's
+    bisection, float32 scores against float64 on ``dev``.  Returns the
+    operands and the numbers."""
+    from maple_tpu_torch.core import kernels as K
+    from maple_tpu_torch.ops import append_batch as AB
+    from maple_tpu_torch.ops import blen_batch as BB
+    from maple_tpu_torch.ops import pack as OP
+    rt = run.rt
+    lRef = rt.refd.lRef
+    triples = blen_pairs(run, n_pairs)
+    ups, lows = [u for u, _, _ in triples], [c for _, c, _ in triples]
+    tips = np.array([tp for _, _, tp in triples])
+    budget = OP.budget_for(ups + lows)
+    Pp = OP.pack_genome_lists(ups, lRef, budget, False)
+    Cp = OP.pack_genome_lists(lows, lRef, budget, False)
+    sens = rt.dc.minBLenSensitivity
+
+    def operands(device, dtype):
+        return (AB.to_device(Pp, device=device, dtype=dtype),
+                AB.to_device(Cp, device=device, dtype=dtype),
+                torch.as_tensor(tips, device=device),
+                AB.device_model_from(rt.model, rt.dc, device=device,
+                                     dtype=dtype))
+
+    ops = {"cpu": operands(torch.device("cpu"), torch.float64),
+           torch.float64: operands(dev, torch.float64),
+           torch.float32: operands(dev, torch.float32)}
+    t0 = time.perf_counter()
+    t_cpu, s_cpu = (x.numpy() for x in
+                    BB.batched_optimize_blen(*ops["cpu"], sens))
+    cpu_s = time.perf_counter() - t0
+    t64, s64 = (x.cpu().numpy() for x in
+                BB.batched_optimize_blen(*ops[torch.float64], sens))
+    t32, s32 = (x.double().cpu().numpy() for x in
+                BB.batched_optimize_blen(*ops[torch.float32], sens))
+    ctx = K.KernelCtx(rt.refd, rt.model, rt.dc)
+
+    def host_lk(i, t):
+        up, low, tip = triples[i]
+        return K.append_prob_node(ctx, up, low, tip, float(t))
+
+    same = t64 == t_cpu
+    far = np.nonzero(np.abs(t64 - t_cpu) >= 4 * sens)[0]
+    for i in far:
+        check(host_lk(i, t64[i]) >= host_lk(i, t_cpu[i]) - BLEN_LK_TOL,
+              f"K10 pair {i}: the card's t {t64[i]} scores below the "
+              f"CPU's t {t_cpu[i]}")
+    err64 = same_inf_and_close(s_cpu[same], s64[same], F64_REL,
+                               "K10 float64, card vs CPU")
+    host_gain = []     # log-LK of the card's t over the host's, where far
+    for i in range(n_host):
+        up, low, tip = triples[i]
+        t_host = K.estimate_branch_length(ctx, up, low, tip)
+        t_host = 0.0 if t_host is False else t_host
+        if abs(t64[i] - t_host) >= 4 * sens:
+            host_gain.append(host_lk(i, t64[i]) - host_lk(i, t_host))
+            check(host_gain[-1] >= -BLEN_HOST_LK_TOL,
+                  f"K10 pair {i}: the card's t {t64[i]} scores below the "
+                  f"host kernel's t {t_host}")
+    inf = np.isneginf(s64)
+    check(np.array_equal(inf, np.isneginf(s32)) and np.isfinite(s32[~inf])
+          .all(), "K10 float32: -inf or non-finite scores differ")
+    dev32 = np.abs(s32[~inf] - s64[~inf])
+    check((dev32 <= K8_F32_ATOL + K8_F32_RTOL * np.abs(s64[~inf])).all(),
+          f"K10 float32 vs float64: max abs diff {dev32.max()}")
+    res = {"pairs": n_pairs, "budget": budget, "tips": int(tips.sum()),
+           "t_zero": int((t64 == 0).sum()),
+           "t_max": int((t64 == BB.T_MAX).sum()),
+           "t_interior": int(((t64 > 0) & (t64 < BB.T_MAX)).sum()),
+           "t_equal_cpu": int(same.sum()), "t_beyond_4sens_cpu": len(far),
+           "max_abs_err_f64_vs_cpu": err64, "host_pairs": n_host,
+           "t_beyond_4sens_host": len(host_gain),
+           "lk_gain_over_host": [min(host_gain, default=0.0),
+                                 max(host_gain, default=0.0)],
+           "max_abs_diff_f32_vs_f64": float(dev32.max()),
+           "t_f32_equal_f64": int((t32 == t64).sum()),
+           "neg_inf_scores": int(inf.sum()), "cpu_f64_s": cpu_s}
+    return ops, sens, res
+
+
+def phase_blen(torch):
+    """Phase 18: the batched branch-length optimiser (K10, torch ops on
+    the interval-algebra scorer) on BLEN_PAIRS (upper, lower) pairs of the
+    serial b3000 tree (UNREST), checked by ``blen_check``, then both
+    float types timed (CUDA events, median of 10) beside the bound of
+    ``speed_of_light.paired_work_model``."""
+    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.ops import blen_batch as BB
+    from maple_tpu_torch.tools.speed_of_light import paired_work_model
+    run, _ = serial_placement(torch, B3000, model="UNREST")
+    dev = torch.device("cuda")
+    ops, sens, res = blen_check(torch, run, dev, BLEN_PAIRS, BLEN_HOST_PAIRS)
+    calls = BB._iters_for(sens) + 5
+    print(f"[blen] {json.dumps(res)}")
+    for dtype in (torch.float32, torch.float64):
+        P, C, tips, dm = ops[dtype]
+        ms = median_ms(lambda: BB.batched_optimize_blen(P, C, tips, dm, sens),
+                       reps=10)
+        work = paired_work_model(
+            AP.stack_fields(P, dm.site_rates, dm.error_rates, -2),
+            AP.stack_fields(C, dm.site_rates, dm.error_rates, -2),
+            run.rt.refd.lRef, calls)
+        print(f"[blen] {str(dtype).split('.')[-1]}: {ms:.4f} ms a call "
+              f"({calls} scorer calls; median of 10, CUDA events), "
+              f"{ms / calls:.4f} ms a scorer call; bound "
+              f"{work['bound_ms']:.5f} ms by {work['bound_by']} "
+              f"({work['contributing_pairs']} contributing entry pairs a "
+              f"scorer call, {work['operations']:.3e} operations, "
+              f"{work['bytes']} bytes): {ms / work['bound_ms']:.1f}x")
+    print(f"[blen] the CPU's float64 call on the card machine's host: "
+          f"{res['cpu_f64_s']:.3f} s")
 
 
 def phase_speed_of_light(torch):
@@ -2128,6 +2336,7 @@ def main(argv):
     sol = phase_speed_of_light(torch)
     phase_torch_op_bounds(torch)
     phase_tools(torch)
+    phase_blen(torch)
     # every count below is of one run, reset just before it
     by_path["legacy"] = legacy_launches
     by_path["mesh"] = mesh_launches

@@ -212,7 +212,14 @@ class _CandidatePlanes:
         """[k, N, B1] bool: the candidate entries whose pair with query
         entry ``cj`` [k, F] contributes (overlapping, not dead, not R/R,
         not the same nucleotide)."""
-        cj = cj.reshape(cj.shape[0], 1, NFIELDS, 1)
+        return self._contributing(cj.reshape(cj.shape[0], 1, NFIELDS, 1))
+
+    def contributing_paired(self, cj):
+        """[1, N, B1] bool: the same for candidate i and entry ``cj[i]``
+        of its own query, ``cj`` [N, F]."""
+        return self._contributing(cj.reshape(1, cj.shape[0], NFIELDS, 1))
+
+    def _contributing(self, cj):
         cC = cj[:, :, F_TYPE]
         overlap = (torch.minimum(self.ends, cj[:, :, F_END])
                    - torch.maximum(self.prevs, cj[:, :, F_PREV])) > 0.5
@@ -234,6 +241,16 @@ def count_contributing_pairs(Pstk, Cflat) -> int:
         for j in _live(Cc[:, :, F_TYPE]).any(0).nonzero().flatten().tolist():
             total += int(planes.contributing(Cc[:, j, :]).sum())
     return total
+
+
+def count_paired_contributing_pairs(Pstk, Cstk) -> int:
+    """How many entry pairs of N (candidate i, query i) pairs add a log
+    factor: the diagonal of :func:`count_contributing_pairs`.  Pstk [N, F,
+    B1] and Cstk [N, F, B2], both stacked along ``axis=-2``."""
+    planes = _CandidatePlanes(Pstk)
+    live = _live(Cstk[:, F_TYPE, :]).any(0).nonzero().flatten().tolist()
+    return sum(int(planes.contributing_paired(Cstk[:, :, j]).sum())
+               for j in live)
 
 
 def _pair_log_factors(p, c, prm, mm, rfl, *, uer: bool):

@@ -43,12 +43,13 @@ packed types and the output written once:
                  entry (the per-site rate and error planes, the previous
                  end and an unused plane ride along)
 
-Roofs (one NVIDIA H100 SXM, published): 67 TFLOP/s float32 outside the
-tensor cores, 3.35 TB/s of device memory.  The bound of a call is the
-larger of operations over the first and bytes over the second;
-``fraction_of_light`` is that bound over the measured time, and
+Roofs (one NVIDIA H100 SXM, published): 67 TFLOP/s float32 (34 TFLOP/s
+float64) outside the tensor cores, 3.35 TB/s of device memory.  The bound
+of a call is the larger of operations over the first and bytes over the
+second; ``fraction_of_light`` is that bound over the measured time, and
 ``grid_over_contributing`` says how much of the distance the executed grid
-explains.  Times are medians of CUDA events after a warm-up; the card's
+explains.  ``paired_work_model`` counts the same for the batched
+branch-length optimiser, which scores N pairs, not a grid, many times.  Times are medians of CUDA events after a warm-up; the card's
 name and power limit are printed with the rows, since a card set below its
 maximum power runs slower.
 
@@ -71,6 +72,7 @@ EXAMPLE = os.path.join(os.path.dirname(os.path.dirname(HERE)), "tests",
                        "goldens", "example_sub80.maple")
 PAIR_FLOPS = 100.0           # per contributing pair (csrc/append_pairs.cu)
 F32_FLOPS = 67e12            # H100 SXM, float32 outside the tensor cores
+F64_FLOPS = 34e12            # H100 SXM, float64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 PACKED_ENTRY_BYTES = 33      # int8 type and value, int32 end, two float32
                              # lengths, three bool flags, four float32 probs
@@ -147,6 +149,29 @@ def work_model(Pstk, Cflat, lRef: int) -> dict:
                     + 4 * (16 + 4 + 2) + 4 * K * N),
             "layout_bytes": layout["bytes"],
             "layout_bound_ms": layout["bound_ms"]}
+
+
+def paired_work_model(Pstk, Cstk, lRef: int, evaluations: int) -> dict:
+    """Counts of ``evaluations`` scorer calls on N (candidate i, query i)
+    pairs, as the batched branch-length optimiser makes them: the
+    contributing entry pairs of the diagonal (not of a grid) times
+    ``evaluations``, at PAIR_FLOPS each over the peak of the tensors' float
+    type; the bytes once: both packed operands (int8 type and value, int32
+    end, three bool flags, six floats an entry), the tip flags, both
+    per-site tables, the model, lengths and scores out."""
+    N, _, B1 = Pstk.shape
+    B2 = Cstk.shape[-1]
+    from ..ops.append_pairs import count_paired_contributing_pairs
+    pairs = count_paired_contributing_pairs(Pstk, Cstk)
+    item = Pstk.element_size()
+    ops = evaluations * pairs * PAIR_FLOPS
+    nbytes = (9 + 6 * item) * N * (B1 + B2) + N + item * (2 * lRef + 22
+                                                          + 2 * N)
+    t_ops = ops / (F64_FLOPS if item == 8 else F32_FLOPS)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"contributing_pairs": pairs, "operations": ops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:

@@ -171,7 +171,8 @@ def test_manifest_covers_every_copied_module():
     maple_tpu is in the manifest, or is one of the port's re-written device
     modules."""
     rewritten = {"__init__.py", "__main__.py", "ops/__init__.py",
-                 "ops/append_batch.py", "parallel/__init__.py",
+                 "ops/append_batch.py", "ops/blen_batch.py",
+                 "parallel/__init__.py",
                  "parallel/batch_placement.py", "parallel/mesh.py",
                  "parallel/pipelined_placer.py", "parallel/proxy_placer.py",
                  "search/__init__.py"}

@@ -1,18 +1,26 @@
 """The port's benchmark tools at a small size on the CPU: the multi-rank
 benchmark on gloo ranks, the device benchmark and the SPR-recall benchmark
 with the CPU named (the kernels' plain versions), their in-tool assertions
-and their output fields; and every tool refusing to run without a card
-unless the CPU is named."""
+and their output fields; the scale and support benchmarks against the JAX
+scripts they twin, on the same alignments; and every tool refusing to run
+without a card unless the CPU is named."""
 import importlib
+import json
+import math
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
 
 from maple_tpu_torch.tools import benchmark_device as BD
 from maple_tpu_torch.tools import benchmark_multihost as BM
+from maple_tpu_torch.tools import benchmark_scale as BSC
 from maple_tpu_torch.tools import benchmark_spr_recall as BR
-from maple_tpu_torch.tools.common import ensure_dataset
+from maple_tpu_torch.tools import benchmark_support as BSU
+from maple_tpu_torch.tools.common import GENERATOR, ROOT, ensure_dataset
 
 CPU = torch.device("cpu")
 LK_TOL = 1e-6            # the proxy path's exact-parity contract
@@ -123,9 +131,81 @@ def test_benchmark_spr_recall_cpu(workdir):
         / res["exact_screen_pass"]["applied_gain"]) == pytest.approx(1.0)
 
 
+def test_benchmark_scale_cpu(tmp_path):
+    """The assertions of tests/test_benchmark_scale.py at 300 samples, seed
+    3, and the JAX script's ``run_one`` on the same alignment: the same LK
+    and RF (both packages run the same host engine on the --fast
+    preset)."""
+    assert BSC.main(["--sizes", "300", "--workdir", str(tmp_path),
+                     "--seed", "3", "--device", "cpu"]) == 0
+    rows = (tmp_path / "scale_results.jsonl").read_text().splitlines()
+    row = json.loads(rows[-1])
+    assert row["samples"] == 300 and row["device"] == "cpu"
+    assert row["placement_seq_per_s"] > 0
+    assert row["lk"] < 0
+    assert row["normalised_rf"] < 0.3
+    assert 0 <= row["rfl"] < 0.1
+    assert {"wall_s", "max_rss_mb", "placement_s", "topology_s", "phases_s",
+            "rf", "mode", "seed", "mut_rate", "flags", "ts"} <= set(row)
+    sys.path.insert(0, ROOT)
+    from scripts.benchmark_scale import run_one
+    aln, truth = ensure_dataset(str(tmp_path), 300, 3, 1.5, 0.2, 0.05)
+    ref = run_one(aln, truth, str(tmp_path / "jax_n300"), True, {})
+    assert abs(row["lk"] - ref["lk"]) <= LK_TOL
+    assert (row["rf"], row["normalised_rf"], row["rfl"]) \
+        == (ref["rf"], ref["normalised_rf"], ref["rfl"])
+    assert row["samples"] == ref["samples"]
+
+
+def test_benchmark_support_cpu(tmp_path):
+    """The assertions of tests/test_support_calibration.py on its noisy
+    1,000-sample alignment, and the same rows as the JAX script's
+    ``run_calibration`` on it."""
+    aln, truth = str(tmp_path / "sup.maple.gz"), str(tmp_path / "sup.nwk")
+    subprocess.run(
+        [sys.executable, GENERATOR, "--samples", "1000", "--seed", "1",
+         "--mutRate", "0.4", "--nRate", "2", "--output", aln,
+         "--treeOut", truth], check=True, timeout=300)
+    rows, n_supported = BSU.run_calibration(aln, truth,
+                                            str(tmp_path / "port"),
+                                            device=CPU)
+    assert n_supported > 100
+    top = [r for r in rows if r[0] >= 0.95 and r[2] > 0]
+    low = [r for r in rows if r[1] <= 0.8 and r[2] > 0]
+    assert top and top[-1][2] >= 50
+    top_frac = top[-1][3]
+    assert top_frac >= 0.85
+    low_n = sum(r[2] for r in low)
+    if low_n:
+        assert sum(r[2] * r[3] for r in low) / low_n < top_frac
+    sys.path.insert(0, ROOT)
+    from scripts.benchmark_support import run_calibration
+    ref, ref_n = run_calibration(aln, truth, str(tmp_path / "jax"))
+    assert n_supported == ref_n and len(rows) == len(ref)
+    for got, want in zip(rows, ref):
+        assert all(a == b or (math.isnan(a) and math.isnan(b))
+                   for a, b in zip(got, want)), (got, want)
+
+
+def test_benchmark_support_main_cpu(tmp_path, capsys):
+    """The command line with the CPU named: the table and one JSON line
+    with the JAX script's fields and the device."""
+    assert BSU.main(["--samples", "200", "--workdir", str(tmp_path),
+                     "--device", "cpu"]) == 0
+    line = (tmp_path / "support_calibration.jsonl").read_text().splitlines()
+    res = json.loads(line[-1])
+    assert res["device"] == "cpu" and res["samples"] == 200
+    assert res["n_supported"] == sum(b["n"] for b in res["bins"]) > 0
+    assert {"seed", "support_for_0branches", "mut_rate", "n_rate",
+            "amb_rate", "ts"} <= set(res)
+    assert "support bin" in capsys.readouterr().out
+    assert os.path.isfile(tmp_path / "sup_run_n200_s1_m1.5_nexusTree.tree")
+
+
 @pytest.mark.parametrize("tool,argv", [
     ("tools.benchmark_device", []), ("tools.benchmark_spr_recall", []),
     ("tools.benchmark_multihost", []), ("dryrun", []),
+    ("tools.benchmark_scale", []), ("tools.benchmark_support", []),
     ("tools.benchmark_device", ["--device", "cpu", "--mesh", "2"])])
 def test_tools_need_a_card_unless_the_cpu_is_named(monkeypatch, capsys,
                                                    tool, argv):
