@@ -27,7 +27,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      memory; the two CUDA kernels of a call timed apart by torch.profiler
      (not measured, and no failure, where it traces no device event);
   5. placement parity: the pipelined placement on b3000 against
-     maple_tpu's pipelined placer on the same input (REF_B3000_*), and on
+     maple_tpu's pipelined placer on the same input (REF_B3000_*), then the
+     same run with MAPLE_DEBUG_DEVBATCH=1 (the same LK and minors, exactly
+     the JAX twin's stage names, its split on a ``[split]`` line), and on
      example_sub80 against serial placement (all samples placed, same
      minor count, LK within 1e-6);
   6. the SPR path: ``--devicePlacement --deviceTopology`` on b3000 with
@@ -54,16 +56,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      ``proxy_step`` against a float64 version of the same arrays on the
      card (top-M score multisets within 1e-4 relative, the float32
      tolerance); the product alone, timed beside its bound;
- 11. the proxy branch at 20,000 samples (scripts/make_synthetic_alignment.py
-     --samples 20000 --seed 1, run as a subprocess), placement stage, default
-     width: a 65,536 x 8,192 float32 pool on the card; all placed, LK
-     finite, the LK difference to serial engine placement reported;
+ 11. the proxy branch at 20,000 samples (the tools' alignment:
+     ``tools/common.py`` ``ensure_dataset``, seed 1, made once into a
+     directory that phase 20 reads), placement stage, default width: a
+     65,536 x 8,192 float32 pool on the card; all placed, LK finite, the
+     LK difference to serial engine placement reported; then the same run
+     with MAPLE_DEBUG_DEVBATCH=1: the same LK and minors, the JAX twin's
+     stage names, the split on a ``[split]`` line;
  12. the legacy branch: MAPLE_DEVICE_LEGACY=1 ``--devicePlacement
      --devicePallas``: on example_sub80 the placement stage within 1e-6 of
      serial with the same placed and minor counts; on b3000 the whole
      pipeline through the command line, its pair-kernel launches counted
      as the ``legacy`` path; its last launch's inputs through the kernel
-     and its plain version, with times and bound;
+     and its plain version, with times and bound; the b3000 placement
+     stage with and without MAPLE_DEBUG_DEVBATCH=1 (as phase 5);
  13. the interval-algebra scorer (torch ops) on the card, on phase 12's
      last batch: float64 against the same scorer on the CPU (1e-9, the
      first 8 queries) and against the pair kernel on the card (1e-9 in
@@ -138,7 +144,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      and ``nonzero`` calls, and the kernels times the tool's null-dispatch
      round trip against the call's wall (not measured, and no failure,
      where the profiler traces no device event).  On ``[dispatch]`` lines;
-     K8 and K10 are torch ops and stay out of the kernel report.
+     K8 and K10 are torch ops and stay out of the kernel report;
+ 20. the headline benchmark: ``python3 -m maple_tpu_torch.tools.bench``
+     (the twin of bench.py) in its own process on phase 11's alignment
+     (20,000 samples, UNREST, default flags): exit 0, its keys, the gate
+     passed (every run's LK within 1e-6 of the exact serial engine's, the
+     same minors), a finite median of three runs; its line on ``[bench]``.
 The line before the last is the card's name and power limit, the one
 before it the kernel report, and the last line the result.  In the
 kernel report, ``ms`` is the merge-walk kernel's time (one wrapper call:
@@ -181,6 +192,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -202,8 +214,21 @@ K_QUERIES, Q_BUDGET = 64, 128        # --deviceBatchSize, starting B2
 PREFIXES = (1024, 8192)
 PLACEMENT_LK_TOL = 1e-6              # maple_tpu's own device contract
 BRANCH_ENV = ("MAPLE_DEVICE_RT", "MAPLE_DEVICE_LEGACY", "MAPLE_PROXY_BF16",
-              "MAPLE_PROXY_D", "MAPLE_SPR_EXACT")
-SYN_SAMPLES, SYN_SEED = 20000, 1
+              "MAPLE_PROXY_D", "MAPLE_SPR_EXACT", "MAPLE_DEBUG_DEVBATCH")
+PROFILE = {"MAPLE_DEBUG_DEVBATCH": "1"}  # the placers' stage split
+# the split's names in maple_tpu's placers (parallel/proxy_placer.py,
+# pipelined_placer.py, batch_placement.py)
+PROXY_SPLIT = ("_t_feat", "_t_upload", "_t_dispatch", "_t_block",
+               "_n_changed", "_n_skipped")
+PIPELINED_SPLIT = {"export_queries", "pool_sync", "pack_queries",
+                   "dispatch", "block", "host"}
+LEGACY_SPLIT = {"sync_pool", "model_warm", "score_readback", "mask",
+                "host_apply"}
+SYN_SAMPLES, SYN_SEED = 20000, 1     # the tools' alignment (phases 11, 20)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "protocol", "runs",
+              "device", "samples", "input", "first_use_s", "baseline",
+              "baseline_seq_per_s", "lk", "lk_baseline", "minors",
+              "minors_baseline", "gate", "stage"}
 TOOL_SAMPLES = 2000                  # synthetic samples of phase 17's tools
 TWIN_TOOL_SAMPLES = 1000             # ... of the scale and support tools
 BLEN_PAIRS, BLEN_HOST_PAIRS = 4096, 256  # phase 18: pairs, host-checked
@@ -820,6 +845,27 @@ def device_placement(torch, path, warmup=None, batch_size=None, env=None,
     return run, run.rt.calculate_tree_likelihood(run.root), wall
 
 
+def check_split(tag, run0, lk0, run, lk, wall, keys):
+    """A run with MAPLE_DEBUG_DEVBATCH=1 against the same run without it
+    (``run0``, ``lk0``): the same LK and minors, exactly the JAX twin's
+    stage names, and its split printed beside the stage wall."""
+    pl0 = run0.pplacer or run0.legacy_placer
+    pl = run.pplacer or run.legacy_placer
+    check(pl0._prof is None, f"{tag}: a split without the variable")
+    check(set(pl._prof) == keys, f"{tag}: split keys {sorted(pl._prof)}")
+    check(lk == lk0 and run.stats.num_minors_found
+          == run0.stats.num_minors_found,
+          f"{tag}: the profiled run's LK {lk} / minors "
+          f"{run.stats.num_minors_found} differ from {lk0} / "
+          f"{run0.stats.num_minors_found}")
+    split = {k: round(v, 4) for k, v in sorted(pl._prof.items())}
+    print(f"[split] {tag} b3000 placement stage {wall:.3f} s, profiled: "
+          f"{json.dumps(split)}; sum {sum(pl._prof.values()):.3f} s "
+          f"({100 * sum(pl._prof.values()) / wall:.1f}% of the stage); "
+          f"LK {lk}, minors {run.stats.num_minors_found} (unprofiled "
+          f"{lk0}, {run0.stats.num_minors_found})")
+
+
 def phase_placement_parity(torch):
     rt_env = {"MAPLE_DEVICE_RT": "1"}
     run, lk, wall = device_placement(torch, B3000, env=rt_env)
@@ -847,6 +893,8 @@ def phase_placement_parity(torch):
     check(abs(lk - REF_B3000_LK) <= PLACEMENT_LK_TOL,
           f"b3000: placement LK differs from maple_tpu's pipelined placer "
           f"by {lk - REF_B3000_LK}")
+    check_split("pipelined", run, lk, *device_placement(
+        torch, B3000, env={**rt_env, **PROFILE}), PIPELINED_SPLIT)
     # the serial contract of tests/test_device_placement.py:149-182
     run, lk, _ = device_placement(torch, SUB80, 16, 16, env=rt_env,
                                   model="GTR")
@@ -1271,21 +1319,18 @@ def phase_proxy_parity(torch):
     return f32
 
 
-def phase_proxy_20k(torch):
-    """Phase 11."""
-    with tempfile.TemporaryDirectory(prefix="smoke_syn_") as tmp:
-        path = os.path.join(tmp, f"syn{SYN_SAMPLES}.maple")
-        t0 = time.perf_counter()
-        subprocess.run(
-            [sys.executable,
-             os.path.join(HERE, "scripts", "make_synthetic_alignment.py"),
-             "--samples", str(SYN_SAMPLES), "--seed", str(SYN_SEED),
-             "--output", path], check=True)
-        made = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-        run, lk, wall = device_placement(torch, path)
-        peak = torch.cuda.max_memory_allocated()
-        ser, ser_lk = serial_placement(torch, path)
+def phase_proxy_20k(torch, work):
+    """Phase 11, on the tools' alignment made into ``work`` (phase 20 reads
+    it there)."""
+    from maple_tpu_torch.tools.common import ensure_dataset
+    t0 = time.perf_counter()
+    path, _ = ensure_dataset(work, SYN_SAMPLES, SYN_SEED, 1.5, 0.2, 0.05)
+    made = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    run, lk, wall = device_placement(torch, path)
+    peak = torch.cuda.max_memory_allocated()
+    split_proxy(run, lk, *device_placement(torch, path, env=PROFILE))
+    ser, ser_lk = serial_placement(torch, path)
     pl = run.proxy_placer
     check(pl is not None and pl.steps > 0, "20k: no proxy step")
     check(np.isfinite(lk), f"20k: LK {lk}")
@@ -1302,6 +1347,55 @@ def phase_proxy_20k(torch):
     cap, D = pl.pool.AF.shape
     del run, ser
     time_product(torch, pl.batch_size, D, cap)
+
+
+def split_proxy(run0, lk0, run, lk, wall):
+    """Phase 11's run with MAPLE_DEBUG_DEVBATCH=1 against the same run
+    without it: the same LK and minors, the JAX twin's stage names, and
+    the split of the stage printed (the placer's threads overlap: shares
+    of the wall do not add up to one)."""
+    pl0, pl = run0.proxy_placer, run.proxy_placer
+    check(not pl0._prof and not any(hasattr(pl0, k) for k in PROXY_SPLIT),
+          "proxy-20k: a split without the variable")
+    check(pl._prof and all(hasattr(pl, k) for k in PROXY_SPLIT),
+          "proxy-20k: the profiled run has no split")
+    check(lk == lk0 and run.stats.num_minors_found
+          == run0.stats.num_minors_found,
+          f"proxy-20k: the profiled run's LK {lk} / minors "
+          f"{run.stats.num_minors_found} differ from {lk0} / "
+          f"{run0.stats.num_minors_found}")
+    split = {k: getattr(pl, k) for k in PROXY_SPLIT}
+    split.update({k: getattr(pl, k) for k in (
+        "steps", "time_place", "time_screen", "time_export",
+        "time_query_export", "time_device", "time_wait", "time_sync_join",
+        "time_prep_wait")})
+    print(f"[split] proxy 20k placement stage {wall:.3f} s, profiled: "
+          f"{json.dumps(split)}; block + dispatch "
+          f"{100 * (pl._t_block + pl._t_dispatch) / wall:.2f}% of the "
+          f"stage, place {100 * pl.time_place / wall:.2f}%, upload "
+          f"{100 * pl._t_upload / wall:.2f}%, feat "
+          f"{100 * pl._t_feat / wall:.2f}%; {pl.stage_split()}")
+
+
+def phase_bench(work):
+    """Phase 20: the headline benchmark (tools/bench.py, the twin of
+    bench.py) in a process of its own on phase 11's alignment."""
+    out, wall = run_tool(
+        ["-m", "maple_tpu_torch.tools.bench", "--samples", str(SYN_SAMPLES),
+         "--workdir", work], "bench")
+    res = json.loads(out.splitlines()[-1])
+    check(set(res) == BENCH_KEYS, f"bench: keys {sorted(res)}")
+    check(res["gate"] == "passed" and res["value"] is not None
+          and np.isfinite(res["value"]) and len(res["runs"]) == 3
+          and res["samples"] == SYN_SAMPLES and res["device"] != "cpu",
+          f"bench: {res}")
+    runs = res["runs"]
+    print(f"[bench] process {wall:.2f} s: median {res['value']:.2f} seq/s "
+          f"of {runs} (spread {100 * (max(runs) - min(runs)) / res['value']:.1f}"
+          f"% of the median), serial engine "
+          f"{res['baseline_seq_per_s']:.2f} seq/s, vs_baseline "
+          f"{res['vs_baseline']:.3f}, first uses {res['first_use_s']:.2f} s")
+    print(f"[bench] {json.dumps(res)}")
 
 
 def phase_legacy(torch, b3000):
@@ -1362,6 +1456,9 @@ def phase_legacy(torch, b3000):
           f"{b3000['serial_minors']}")
     check(placed_count(run) == N_SAMPLES and np.isfinite(lk),
           "b3000 legacy placement: not all placed or LK not finite")
+    check_split("legacy", run, lk, *device_placement(
+        torch, B3000, env={**env, **PROFILE}, device_pallas=True),
+        LEGACY_SPLIT)
     # the last launch of the CLI run: kernel against plain, times, bound
     (args32, uer), = last
     args64 = tuple(a.double() for a in args32)
@@ -2495,7 +2592,8 @@ def main(argv):
     chunk = phase_screen_chunk(torch, phase_spr_parity(torch))
     phase_proxy_main_path(torch)
     f32 = phase_proxy_parity(torch)
-    phase_proxy_20k(torch)
+    syn_work = tempfile.mkdtemp(prefix="smoke_syn_")   # phases 11 and 20
+    phase_proxy_20k(torch, syn_work)
     legacy_launches, legacy_label, legacy, last, pallas_stage = \
         phase_legacy(torch, b3000)
     k8 = phase_interval_algebra(torch, last)
@@ -2510,6 +2608,8 @@ def main(argv):
     phase_torch_op_bounds(torch)
     phase_tools(torch)
     phase_dispatch(torch, phase_blen(torch))
+    phase_bench(syn_work)
+    shutil.rmtree(syn_work)
     # every count below is of one run, reset just before it
     by_path["legacy"] = legacy_launches
     by_path["mesh"] = mesh_launches

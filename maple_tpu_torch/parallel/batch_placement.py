@@ -32,9 +32,20 @@ With a ``mesh`` (:mod:`maple_tpu_torch.parallel.mesh`) the pool is sharded
 over the ``cand`` axis and each query chunk over ``dp``; every rank runs
 this same placer on the same tree, scores its tile and gathers the whole
 score matrix, so the host phase decides the same on every rank.
+
+``MAPLE_DEBUG_DEVBATCH=1`` sums the host time of ``place_batch`` by the JAX
+twin's stages into ``_prof`` and prints them every 40 batches
+(``[devbatch]``): ``sync_pool`` (the pool's refresh or row update),
+``model_warm`` (the device model or the pair kernel's model arrays),
+``score_readback`` (the queries' export and packing, their upload, the
+scorer and the copy of its scores to the host; on a mesh the gather of
+every rank's tiles too), ``mask`` and ``host_apply`` (the exact host
+decisions and applies).  The pipelined placer shares ``_prof`` and
+``_tick``.  With the variable unset ``_prof`` is None and nothing is timed.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import List
 
@@ -193,6 +204,18 @@ class BatchedPlacer:
         self.time_scoring = 0.0   # host seconds in (or blocked on) screens
         self.time_fine = 0.0
         self.time_apply = 0.0
+        # the stage split (module docstring)
+        self._prof = {} if os.environ.get("MAPLE_DEBUG_DEVBATCH") else None
+        self._prof_batches = 0
+
+    def _tick(self, key, t0):
+        """Add the time since ``t0`` to stage ``key``; returns now.
+        Without the profile it returns ``t0`` and reads no clock."""
+        if self._prof is None:
+            return t0
+        now = time.time()
+        self._prof[key] = self._prof.get(key, 0.0) + (now - t0)
+        return now
 
     def _model_arrays(self):
         """(mm [1, 1, 16], rf [1, 1, 4]) float32 on the device, uploaded
@@ -299,6 +322,12 @@ class BatchedPlacer:
                     if nr is not None:
                         root = nr
             return root
+        t1 = self._tick("sync_pool", t0)
+        if self.use_pallas and self.mesh is None:
+            mm, rf = self._model_arrays()
+        else:
+            self._device_model()
+        t1 = self._tick("model_warm", t1)
         # one scorer call per batch, over the active power-of-two prefix
         # of the pool: the full-capacity pool is sized for the whole run
         # and would spend most of the work on unassigned rows
@@ -308,7 +337,6 @@ class BatchedPlacer:
             n_used = pool.capacity
             scores = self._mesh_scores(Cflat)
         elif self.use_pallas:
-            mm, rf = self._model_arrays()
             n_used = pool.n_prefix
             scores = append_scores_prestacked(
                 pool.dev_pool[:n_used], upload(Cflat, self.device),
@@ -320,9 +348,11 @@ class BatchedPlacer:
             scores = grid_append_scores(
                 fields_view(pool.dev_pool[:n_used], -2), fields_view(C, -1),
                 rt.dc.oneMutBLen, True, self._device_model()).cpu().numpy()
+        t1 = self._tick("score_readback", t1)
         # columns map to persistent pool rows; rows whose node became
         # ineligible (or were never assigned) are masked out
         scores[:, ~pool.valid[:n_used]] = -np.inf
+        t1 = self._tick("mask", t1)
         self.time_scoring += time.time() - t0
 
         anchor_ids = pool.node_at
@@ -368,6 +398,13 @@ class BatchedPlacer:
                         recent.append(n)
         finally:
             rt.touch_log = prev_log
+        if self._prof is not None:
+            self._tick("host_apply", t1)
+            self._prof_batches += 1
+            if self._prof_batches % 40 == 0:
+                print("[devbatch]", {k: round(v, 1)
+                                     for k, v in sorted(self._prof.items())},
+                      flush=True)
         return root
 
     # ------------------------------------------------------------------

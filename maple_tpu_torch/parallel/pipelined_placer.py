@@ -26,6 +26,15 @@ top-k pair is copied into pinned host buffers behind an event, and
 fresh pinned staging tensor per submit, so later host edits of the pool's
 mirror never reach a copy still in flight.
 
+``MAPLE_DEBUG_DEVBATCH=1`` sums the host time by the JAX twin's stages into
+``_prof`` (``BatchedPlacer._tick``) and appends them to the progress line:
+``export_queries`` (the batch's genome lists), ``pool_sync`` (the row update
+or rebuild of the pool's host mirror), ``pack_queries`` (packing and
+stacking the queries, the model arrays), ``dispatch`` (the uploads through
+pinned staging, queueing the fused step and its result copies), ``block``
+(the wait on the step's done event) and ``host`` (the exact host decisions
+and applies).
+
 Reference contract being replaced: the strictly serial stepwise addition
 loop, MAPLEv0.7.5.4.py:11692-11752 with the per-sample DFS at :7912-8293.
 """
@@ -99,11 +108,13 @@ class PipelinedPlacer(BatchedPlacer):
         rt = self.rt
         pool = self.pool
         device = self.device
+        t0 = time.time() if self._prof is not None else None
         # queries padded to the batch size by repeating the last one
         queries = [rt.kern.export(d) for _, d in batch]
         K = self.batch_size
         while len(queries) < K:
             queries.append(queries[-1])
+        t0 = self._tick("export_queries", t0)
 
         upd = pool.make_update(unscattered) \
             if pool.rows_host is not None else None
@@ -112,9 +123,11 @@ class PipelinedPlacer(BatchedPlacer):
             upd = (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=bool))
         idx, flags = upd
         rows = pool.rows_host[idx]
+        t0 = self._tick("pool_sync", t0)
 
         Cflat, prm = self._query_arrays(queries)
         mm, rf = self._model_arrays()
+        t0 = self._tick("pack_queries", t0)
 
         on_cuda = device.type == "cuda"
         start = done = None
@@ -131,6 +144,7 @@ class PipelinedPlacer(BatchedPlacer):
         if on_cuda:
             done = torch.cuda.Event(enable_timing=True)
             done.record()
+        self._tick("dispatch", t0)
         # snapshot the row->node mapping AS OF THIS SCREEN: a later
         # full_rebuild (while this screen is still in flight) reassigns
         # rows wholesale, and translating this screen's top-k indices
@@ -155,6 +169,7 @@ class PipelinedPlacer(BatchedPlacer):
         ti = screen.ti.numpy()
         node_arr, row_of = screen.node_arr, screen.row_of
         self.time_scoring += time.time() - t0
+        t0 = self._tick("block", t0)
 
         stale_rows = np.zeros(len(node_arr), dtype=bool)
         recent: List[int] = []
@@ -199,6 +214,7 @@ class PipelinedPlacer(BatchedPlacer):
                         note(n)
         finally:
             rt.touch_log = prev_log
+        self._tick("host", t0)
         return root, delta
 
     # ------------------------------------------------------------------
@@ -243,8 +259,12 @@ class PipelinedPlacer(BatchedPlacer):
                 last_print = self.n_total
                 el = time.time() - start
                 rate = (self.n_total - n_placed) / max(el, 1e-9)
-                print(f"placed {self.n_total} samples, {rate:.1f} seq/s "
-                      f"(block {self.time_scoring:.1f}s fine "
-                      f"{self.time_fine:.1f}s apply "
-                      f"{self.time_apply:.1f}s)", flush=True)
+                msg = (f"placed {self.n_total} samples, {rate:.1f} seq/s "
+                       f"(block {self.time_scoring:.1f}s fine "
+                       f"{self.time_fine:.1f}s apply "
+                       f"{self.time_apply:.1f}s)")
+                if self._prof is not None:
+                    msg += " " + str({k: round(v, 1)
+                                      for k, v in sorted(self._prof.items())})
+                print(msg, flush=True)
         return root

@@ -42,6 +42,27 @@ result.  The screen thread is the only one that queues a collective, inside
 ``on_stream()``: a collective is ordered after the current stream, which is
 what orders the gather after the local top-k.
 
+``MAPLE_DEBUG_DEVBATCH=1`` splits the placer's host time into the JAX
+twin's stages, each accumulated on the thread that runs it (no lock):
+
+* ``_t_feat``, ``_n_changed``, ``_n_skipped`` (``_sync_pool``, the sync
+  thread): the anchor feature export, the changed nodes it exported and
+  those the fingerprint dedup dropped;
+* ``_t_upload`` (``_submit``, the screen thread): on CUDA the pinned
+  staging of the step's arrays and the queueing of their copies, not the
+  copies themselves;
+* ``_t_dispatch`` (the same): queueing the step and its result copies on
+  the pool's stream, not the device's work (``time_device`` has that);
+* ``_t_block`` (``_fetch``, the screen thread): the wait on the step's
+  done event, device work included;
+* the first full batch's feature counts (percentiles), "slow submit"
+  above 1.0 s and "slow fetch" above 0.5 s, and the sums in brackets on
+  the progress line of ``place_all``.
+
+The JAX twin's "initial pool build spilled" line has no counterpart: the
+port scatters a sync's rows unpadded in one step and never spills.  With
+the variable unset none of this runs.
+
 Reference contract being replaced: the strictly serial stepwise addition
 loop, MAPLEv0.7.5.4.py:11692-11752 with the per-sample DFS at :7912-8293.
 """
@@ -304,6 +325,12 @@ class EngineProxyPlacer:
         self.time_wait = 0.0       # main-loop fetch-result wait
         self.time_sync_join = 0.0  # main-loop pool-sync join
         self.time_prep_wait = 0.0  # main-loop next-batch join
+        self._prof = bool(os.environ.get("MAPLE_DEBUG_DEVBATCH"))
+        if self._prof:             # the stage split (module docstring)
+            self._t_feat = self._t_upload = 0.0
+            self._t_dispatch = self._t_block = 0.0
+            self._n_changed = self._n_skipped = 0
+            self._nf_printed = False
 
     # ------------------------------------------------------------------
     def _sync_pool(self, changed: np.ndarray):
@@ -319,6 +346,10 @@ class EngineProxyPlacer:
         idx, w, valid, max_nf, skip = self.eng.export_feats(
             changed, pool.d_hash, pool.g_buckets,
             self.fmax_anchor, use_fp=True)
+        if self._prof:
+            self._t_feat += time.time() - t0
+            self._n_changed += len(changed)
+            self._n_skipped += int(skip.sum())
         while max_nf >= self.fmax_anchor:
             self.fmax_anchor *= 2
             print(f"[proxy] anchor feature budget -> "
@@ -367,6 +398,8 @@ class EngineProxyPlacer:
         pool = self.pool
         device = pool.device
         qidx, qw = self._export_queries(vids)
+        if self._prof:
+            self._feature_counts(vids, qw, sync[2])
         t0 = time.time()
         rows, aidx, aw, avalid = sync if pool.mesh is None \
             else local_updates(pool.mesh, pool.capacity, *sync)
@@ -379,6 +412,8 @@ class EngineProxyPlacer:
                     upload(aidx, device), upload(aw, device),
                     upload(avalid, device), upload(qidx, device),
                     upload(qw, device))
+            if self._prof:
+                t1 = time.time()
             if pool.mesh is None:
                 ts, ti = proxy_step(*args, topm=self.topm)
             else:
@@ -389,7 +424,14 @@ class EngineProxyPlacer:
                 done = torch.cuda.Event(enable_timing=True)
                 done.record()
         self.steps += 1
-        self.time_screen += time.time() - t0
+        dt = time.time() - t0
+        self.time_screen += dt
+        if self._prof:
+            self._t_upload += t1 - t0
+            self._t_dispatch += time.time() - t1
+            if dt > 1.0:
+                print(f"[proxy] slow submit {dt:.1f}s (R={len(rows)}, "
+                      f"cap={pool.capacity})", flush=True)
         # rows are assigned while this step is in flight: snapshot the
         # row -> node mapping as of its submission
         return _Screen(ts, ti, start, done, pool.node_arr.copy())
@@ -402,8 +444,29 @@ class EngineProxyPlacer:
             screen.done.synchronize()
             self.time_device += screen.start.elapsed_time(screen.done) / 1e3
         res = screen.ts.numpy(), screen.ti.numpy(), screen.node_arr
-        self.time_screen += time.time() - t0
+        dt = time.time() - t0
+        self.time_screen += dt
+        if self._prof:
+            self._t_block += dt
+            if dt > 0.5:
+                print(f"[proxy] slow fetch {dt:.2f}s", flush=True)
         return res
+
+    def _feature_counts(self, vids, qw, aw):
+        """Once, on the first full batch: the percentiles of its queries'
+        and its anchor update rows' feature counts."""
+        if self._nf_printed or len(vids) != self.batch_size:
+            return
+        self._nf_printed = True
+        qn = np.count_nonzero(qw, axis=1)
+        an = np.count_nonzero(aw, axis=1)
+        if not len(an):   # no anchor row changed
+            an = np.zeros(1, np.int64)
+        print(f"[proxy] nf query p50={np.percentile(qn, 50):.0f} "
+              f"p99={np.percentile(qn, 99):.0f} max={qn.max()}  "
+              f"anchor p50={np.percentile(an, 50):.0f} "
+              f"p99={np.percentile(an, 99):.0f} max={an.max()}",
+              flush=True)
 
     def _place(self, vids, first_sample: int, res, refresh_every: int,
                checkpoint=None):
@@ -437,6 +500,13 @@ class EngineProxyPlacer:
                 checkpoint(num)
         self.time_place += time.time() - t0
         return num
+
+    def stage_split(self) -> str:
+        """The bracketed stage sums of the JAX twin's progress line."""
+        return (f"[upload {self._t_upload:.1f} dispatch "
+                f"{self._t_dispatch:.1f} block {self._t_block:.1f} feat "
+                f"{self._t_feat:.1f} rows {self._n_changed} skip "
+                f"{self._n_skipped}]")
 
     # ------------------------------------------------------------------
     def place_all(self, distances, num_samples: int, checkpoint=None,
@@ -528,10 +598,13 @@ class EngineProxyPlacer:
                     last_print = num_samples
                     el = time.time() - start
                     rate = (num_samples - n_start) / max(el, 1e-9)
-                    print(f"placed {num_samples} samples, {rate:.1f} seq/s "
-                          f"(screen {self.time_screen:.1f}s place "
-                          f"{self.time_place:.1f}s export "
-                          f"{self.time_export + self.time_query_export:.1f}"
-                          f"s)", flush=True)
+                    msg = (f"placed {num_samples} samples, {rate:.1f} seq/s "
+                           f"(screen {self.time_screen:.1f}s place "
+                           f"{self.time_place:.1f}s export "
+                           f"{self.time_export + self.time_query_export:.1f}"
+                           f"s)")
+                    if self._prof:
+                        msg += f" {self.stage_split()}"
+                    print(msg, flush=True)
         eng.screen_log(False)
         return num_samples

@@ -206,7 +206,7 @@ def test_benchmark_support_main_cpu(tmp_path, capsys):
     ("tools.benchmark_device", []), ("tools.benchmark_spr_recall", []),
     ("tools.benchmark_multihost", []), ("dryrun", []),
     ("tools.benchmark_scale", []), ("tools.benchmark_support", []),
-    ("tools.profile_tunnel", []),
+    ("tools.profile_tunnel", []), ("tools.bench", []),
     ("tools.benchmark_device", ["--device", "cpu", "--mesh", "2"])])
 def test_tools_need_a_card_unless_the_cpu_is_named(monkeypatch, capsys,
                                                    tool, argv):
