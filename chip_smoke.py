@@ -216,10 +216,14 @@ PLACEMENT_LK_TOL = 1e-6              # maple_tpu's own device contract
 BRANCH_ENV = ("MAPLE_DEVICE_RT", "MAPLE_DEVICE_LEGACY", "MAPLE_PROXY_BF16",
               "MAPLE_PROXY_D", "MAPLE_SPR_EXACT", "MAPLE_DEBUG_DEVBATCH")
 PROFILE = {"MAPLE_DEBUG_DEVBATCH": "1"}  # the placers' stage split
-# the split's names in maple_tpu's placers (parallel/proxy_placer.py,
-# pipelined_placer.py, batch_placement.py)
-PROXY_SPLIT = ("_t_feat", "_t_upload", "_t_dispatch", "_t_block",
-               "_n_changed", "_n_skipped")
+# the proxy placer's spans and counters in its run's tracer
+# (maple_tpu_torch/runtime/phases.py; parallel/proxy_placer.py), and the
+# split's names in maple_tpu's rt-based placers (pipelined_placer.py,
+# batch_placement.py)
+PROXY_SPLIT = ("proxy.sync", "proxy.upload", "proxy.dispatch",
+               "proxy.fetch", "proxy.query_export", "place.seeded",
+               "place.wait.screen", "place.wait.prep", "place.wait.sync")
+PROXY_COUNTS = ("proxy.rows_changed", "proxy.rows_skipped")
 PIPELINED_SPLIT = {"export_queries", "pool_sync", "pack_queries",
                    "dispatch", "block", "host"}
 LEGACY_SPLIT = {"sync_pool", "model_warm", "score_readback", "mask",
@@ -830,9 +834,10 @@ def device_placement(torch, path, warmup=None, batch_size=None, env=None,
     out = tempfile.mkdtemp(prefix="smoke_dev_")
     cfg = MapleConfig(input=path, output=os.path.join(out, "dev"),
                       overwrite=True, device_placement=True, **flags)
-    run = Run(cfg, torch.device("cuda"))
-    run.load()
     with branch_env(**(env or {})):
+        # the run's tracer reads MAPLE_DEBUG_DEVBATCH when it is made
+        run = Run(cfg, torch.device("cuda"))
+        run.load()
         t0 = time.perf_counter()
         run.build_initial_tree_device(
             warmup=cfg.device_warmup if warmup is None else warmup,
@@ -1351,30 +1356,41 @@ def phase_proxy_20k(torch, work):
 
 def split_proxy(run0, lk0, run, lk, wall):
     """Phase 11's run with MAPLE_DEBUG_DEVBATCH=1 against the same run
-    without it: the same LK and minors, the JAX twin's stage names, and
-    the split of the stage printed (the placer's threads overlap: shares
-    of the wall do not add up to one)."""
-    pl0, pl = run0.proxy_placer, run.proxy_placer
-    check(not pl0._prof and not any(hasattr(pl0, k) for k in PROXY_SPLIT),
-          "proxy-20k: a split without the variable")
-    check(pl._prof and all(hasattr(pl, k) for k in PROXY_SPLIT),
-          "proxy-20k: the profiled run has no split")
+    without it: the same LK, minors and counts, the placer's spans in the
+    tracer's timeline only with the variable, and the split of the stage
+    printed from the tracer (the placer's threads overlap: shares of the
+    wall do not add up to one)."""
+    pl, tr0, tr = run.proxy_placer, run0.tracer, run.tracer
+    check(not tr0.traced and not tr0.timeline(),
+          "proxy-20k: a timeline without the variable")
+    kept = {name for name, *_ in tr.timeline()}
+    check(tr.traced and all(k in kept for k in PROXY_SPLIT),
+          f"proxy-20k: the profiled run's timeline lacks "
+          f"{sorted(set(PROXY_SPLIT) - kept)}")
+    check(all(tr.counter(k) == tr0.counter(k) for k in PROXY_COUNTS)
+          and tr.counter("proxy.rows_changed") > 0,
+          f"proxy-20k: counts {tr.counters()} against {tr0.counters()}")
     check(lk == lk0 and run.stats.num_minors_found
           == run0.stats.num_minors_found,
           f"proxy-20k: the profiled run's LK {lk} / minors "
           f"{run.stats.num_minors_found} differ from {lk0} / "
           f"{run0.stats.num_minors_found}")
-    split = {k: getattr(pl, k) for k in PROXY_SPLIT}
+    split = {k: tr.inclusive(k) for k in PROXY_SPLIT}
+    split.update({k: tr.counter(k) for k in PROXY_COUNTS})
     split.update({k: getattr(pl, k) for k in (
         "steps", "time_place", "time_screen", "time_export",
         "time_query_export", "time_device", "time_wait", "time_sync_join",
         "time_prep_wait")})
+
+    def share(*names):
+        return 100 * sum(tr.inclusive(k) for k in names) / wall
+
     print(f"[split] proxy 20k placement stage {wall:.3f} s, profiled: "
-          f"{json.dumps(split)}; block + dispatch "
-          f"{100 * (pl._t_block + pl._t_dispatch) / wall:.2f}% of the "
-          f"stage, place {100 * pl.time_place / wall:.2f}%, upload "
-          f"{100 * pl._t_upload / wall:.2f}%, feat "
-          f"{100 * pl._t_feat / wall:.2f}%; {pl.stage_split()}")
+          f"{json.dumps(split)}; fetch + dispatch "
+          f"{share('proxy.fetch', 'proxy.dispatch'):.2f}% of the stage, "
+          f"place {100 * pl.time_place / wall:.2f}%, upload "
+          f"{share('proxy.upload'):.2f}%, sync {share('proxy.sync'):.2f}%; "
+          f"{pl.stage_split()}")
 
 
 def phase_bench(work):

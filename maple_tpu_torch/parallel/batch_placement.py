@@ -33,19 +33,20 @@ over the ``cand`` axis and each query chunk over ``dp``; every rank runs
 this same placer on the same tree, scores its tile and gathers the whole
 score matrix, so the host phase decides the same on every rank.
 
-``MAPLE_DEBUG_DEVBATCH=1`` sums the host time of ``place_batch`` by the JAX
-twin's stages into ``_prof`` and prints them every 40 batches
-(``[devbatch]``): ``sync_pool`` (the pool's refresh or row update),
+``_tick`` records the host time of ``place_batch`` by the JAX twin's
+stages as spans ``legacy.<stage>`` of the tree runtime's tracer
+(``runtime/phases.py``): ``sync_pool`` (the pool's refresh or row update),
 ``model_warm`` (the device model or the pair kernel's model arrays),
 ``score_readback`` (the queries' export and packing, their upload, the
 scorer and the copy of its scores to the host; on a mesh the gather of
 every rank's tiles too), ``mask`` and ``host_apply`` (the exact host
-decisions and applies).  The pipelined placer shares ``_prof`` and
-``_tick``.  With the variable unset ``_prof`` is None and nothing is timed.
+decisions and applies).  With the trace switch (``MAPLE_DEBUG_DEVBATCH=1``)
+``_prof`` is a view of those spans' seconds by stage, printed every 40
+batches (``[devbatch]``); without it ``_prof`` is None.  The pipelined
+placer shares ``_prof`` and ``_tick`` (spans ``pipelined.<stage>``).
 """
 from __future__ import annotations
 
-import os
 import time
 from typing import List
 
@@ -165,6 +166,8 @@ class BatchedPlacer:
     the host decision phase (``_place_one``) that the pipelined placer
     reuses."""
 
+    SPAN_PREFIX = "legacy."     # its stages' spans (module docstring)
+
     def __init__(self, rt, stats, device: torch.device,
                  batch_size: int = 64, query_chunk: int = 16, mesh=None,
                  use_pallas: bool = False, expected_samples: int = 0):
@@ -205,16 +208,16 @@ class BatchedPlacer:
         self.time_fine = 0.0
         self.time_apply = 0.0
         # the stage split (module docstring)
-        self._prof = {} if os.environ.get("MAPLE_DEBUG_DEVBATCH") else None
+        self.tracer = rt.tracer
+        self._prof = self.tracer.totals(prefix=self.SPAN_PREFIX) \
+            if self.tracer.traced else None
         self._prof_batches = 0
 
     def _tick(self, key, t0):
-        """Add the time since ``t0`` to stage ``key``; returns now.
-        Without the profile it returns ``t0`` and reads no clock."""
-        if self._prof is None:
-            return t0
+        """Record the time since ``t0`` as the span of stage ``key``;
+        returns now."""
         now = time.time()
-        self._prof[key] = self._prof.get(key, 0.0) + (now - t0)
+        self.tracer.add(self.SPAN_PREFIX + key, now - t0)
         return now
 
     def _model_arrays(self):
@@ -398,8 +401,8 @@ class BatchedPlacer:
                         recent.append(n)
         finally:
             rt.touch_log = prev_log
+        self._tick("host_apply", t1)
         if self._prof is not None:
-            self._tick("host_apply", t1)
             self._prof_batches += 1
             if self._prof_batches % 40 == 0:
                 print("[devbatch]", {k: round(v, 1)

@@ -28,7 +28,12 @@ event: nothing synchronises the whole stream.  The host helpers
 (``_euler_intervals``, ``_current_attachment_lk``, ``_collect_queries``,
 ``_collect_anchors``) are copies of the JAX package's.
 
-Each pass appends a :class:`ScreenPass` to the module's ``stats``.
+Each pass appends a :class:`ScreenPass` to the module's ``stats``, and
+records into the tree runtime's tracer (``runtime/phases.py``) the span
+``spr.pass`` with its children ``spr.collect``, ``spr.pack``,
+``spr.decide`` and ``spr.apply`` (the ``ScreenPass`` seconds of the same
+names are theirs), and the counters ``spr.queries``, ``spr.proposals``
+and ``spr.applied`` (moves the serial apply made).
 
 Reference crawl being replaced: findBestParentTopology
 MAPLEv0.7.5.4.py:6817-7724 with stop rules :8080-8088.
@@ -312,9 +317,13 @@ def _apply(rt, root, proposals, params, counters, st: ScreenPass, t0,
           f"{what}-> {len(proposals)} proposals in {time.time() - t0:.2f}s",
           flush=True)
     set_all_dirty(rt.tree, root, dirtiness=False)
-    t = time.time()
-    out = apply_spr_moves(rt, proposals, params, counters)
-    st.apply_s = time.time() - t
+    applied = counters.topology_updates
+    with rt.tracer.span("spr.apply") as sp:
+        out = apply_spr_moves(rt, proposals, params, counters)
+    st.apply_s = sp.seconds
+    rt.tracer.count("spr.queries", st.queries)
+    rt.tracer.count("spr.proposals", st.proposals)
+    rt.tracer.count("spr.applied", counters.topology_updates - applied)
     return out
 
 
@@ -330,111 +339,112 @@ def _screen_single_device(rt, root: int, params, counters, t0, *,
     tree = rt.tree
     strict, fails, threshold, placement_thresh = params
     st = ScreenPass("proxy")
-    t = time.time()
-    q_nodes, q_handles, q_blens, q_tips, q_base = _collect_queries(
-        rt, root, placement_thresh, keep_handles=True)
-    if not q_nodes:
-        return None, 0.0
-    anchors, a_handles = _collect_anchors(rt, root)
-    if not anchors:
-        return None, 0.0
-    st.collect_s = time.time() - t
+    with rt.tracer.span("spr.collect") as sp:
+        q_nodes, q_handles, q_blens, q_tips, q_base = _collect_queries(
+            rt, root, placement_thresh, keep_handles=True)
+        if not q_nodes:
+            return None, 0.0
+        anchors, a_handles = _collect_anchors(rt, root)
+        if not anchors:
+            return None, 0.0
+    st.collect_s = sp.seconds
     stats.passes.append(st)
-    t = time.time()
-    store = rt.kern.store
-    a_vids = np.asarray([h.vid for h in a_handles], np.int64)
-    fmax_a = FMAX_ANCHOR
-    while True:  # budgets grow on saturation (truncation is silent)
-        aidx, aw, cnt = store.export_feats(a_vids, False, D_HASH,
-                                           G_BUCKETS, fmax_a)
-        if cnt.max(initial=0) < fmax_a:
-            break
-        fmax_a *= 2
-    q_vids = np.asarray([h.vid for h in q_handles], np.int64)
-    fmax_q = FMAX_QUERY
-    while True:
-        qidx, qw, cnt = store.export_feats(q_vids, True, D_HASH,
-                                           G_BUCKETS, fmax_q)
-        if cnt.max(initial=0) < fmax_q:
-            break
-        fmax_q *= 2
+    with rt.tracer.span("spr.pack") as sp:
+        store = rt.kern.store
+        a_vids = np.asarray([h.vid for h in a_handles], np.int64)
+        fmax_a = FMAX_ANCHOR
+        while True:  # budgets grow on saturation (truncation is silent)
+            aidx, aw, cnt = store.export_feats(a_vids, False, D_HASH,
+                                               G_BUCKETS, fmax_a)
+            if cnt.max(initial=0) < fmax_a:
+                break
+            fmax_a *= 2
+        q_vids = np.asarray([h.vid for h in q_handles], np.int64)
+        fmax_q = FMAX_QUERY
+        while True:
+            qidx, qw, cnt = store.export_feats(q_vids, True, D_HASH,
+                                               G_BUCKETS, fmax_q)
+            if cnt.max(initial=0) < fmax_q:
+                break
+            fmax_q *= 2
 
-    N = len(anchors)
-    K_total = len(q_nodes)
-    st.queries, st.anchors = K_total, N
-    cap = 1024
-    while cap < N:
-        cap *= 2
-    # bf16 features at 512k+ rows (as the JAX package, for the halved
-    # footprint); the exact top-M re-score absorbs the rounding, and topm
-    # deepens to keep recall
-    dtype = torch.float32
-    if cap >= BF16_CAP:
-        dtype = torch.bfloat16
-        topm = max(topm, BF16_TOPM)
-    events = _Events(device)
-    start = events.begin()
-    AF = torch.zeros((cap, D), dtype=dtype, device=device)
-    valid = torch.zeros(cap, dtype=torch.bool, device=device)
-    for s0 in range(0, N, SCATTER_ROWS):
-        rows = np.arange(s0, min(N, s0 + SCATTER_ROWS), dtype=np.int64)
-        scatter_only(AF, valid, upload(rows, device),
-                     upload(aidx[rows], device), upload(aw[rows], device),
-                     upload(np.ones(len(rows), dtype=bool), device))
-    tin, tout = _euler_intervals(tree, root)
-    a_tin = np.full(cap, _NO_TIN, dtype=np.int32)
-    a_tin[:N] = tin[np.asarray(anchors)]
-    dev_a_tin = upload(a_tin, device)
-    events.end(start)
-    row_of = {node: i for i, node in enumerate(anchors)}
-    nodes_arr = np.asarray(q_nodes)
-
-    pending = []
-    for s in range(0, K_total, chunk):
-        e = min(K_total, s + chunk)
-        nodes = nodes_arr[s:e]
-        excl = _exclusions(tree, nodes, row_of)
+        N = len(anchors)
+        K_total = len(q_nodes)
+        st.queries, st.anchors = K_total, N
+        cap = 1024
+        while cap < N:
+            cap *= 2
+        # bf16 features at 512k+ rows (as the JAX package, for the
+        # halved footprint); the exact top-M re-score absorbs the rounding,
+        # and topm deepens to keep recall
+        dtype = torch.float32
+        if cap >= BF16_CAP:
+            dtype = torch.bfloat16
+            topm = max(topm, BF16_TOPM)
+        events = _Events(device)
         start = events.begin()
-        ts, ti = spr_screen_step(
-            AF, valid, dev_a_tin, upload(qidx[s:e], device),
-            upload(qw[s:e], device),
-            upload(tin[nodes].astype(np.int32), device),
-            upload(tout[nodes].astype(np.int32), device),
-            upload(excl, device), topm=topm)
-        ts, ti = to_host(ts, ti)
-        pending.append((s, e, ts, ti, events.end(start)))
-    st.chunks = len(pending)
-    st.pack_s = time.time() - t
+        AF = torch.zeros((cap, D), dtype=dtype, device=device)
+        valid = torch.zeros(cap, dtype=torch.bool, device=device)
+        for s0 in range(0, N, SCATTER_ROWS):
+            rows = np.arange(s0, min(N, s0 + SCATTER_ROWS), dtype=np.int64)
+            scatter_only(AF, valid, upload(rows, device),
+                         upload(aidx[rows], device), upload(aw[rows], device),
+                         upload(np.ones(len(rows), dtype=bool), device))
+        tin, tout = _euler_intervals(tree, root)
+        a_tin = np.full(cap, _NO_TIN, dtype=np.int32)
+        a_tin[:N] = tin[np.asarray(anchors)]
+        dev_a_tin = upload(a_tin, device)
+        events.end(start)
+        row_of = {node: i for i, node in enumerate(anchors)}
+        nodes_arr = np.asarray(q_nodes)
+
+        pending = []
+        for s in range(0, K_total, chunk):
+            e = min(K_total, s + chunk)
+            nodes = nodes_arr[s:e]
+            excl = _exclusions(tree, nodes, row_of)
+            start = events.begin()
+            ts, ti = spr_screen_step(
+                AF, valid, dev_a_tin, upload(qidx[s:e], device),
+                upload(qw[s:e], device),
+                upload(tin[nodes].astype(np.int32), device),
+                upload(tout[nodes].astype(np.int32), device),
+                upload(excl, device), topm=topm)
+            ts, ti = to_host(ts, ti)
+            pending.append((s, e, ts, ti, events.end(start)))
+        st.chunks = len(pending)
+    st.pack_s = sp.seconds
 
     # exact re-score of each query's top-M (native appendProbNode, f64)
-    t = time.time()
-    proposals = []
-    n_threads = max(1, rt.cfg.numCores)
-    blens_arr = np.asarray(q_blens, np.float64)
-    tips_arr = np.asarray(q_tips, np.uint8)
-    st.q_nodes = nodes_arr
-    st.q_best = np.full(K_total, -np.inf)
-    st.q_base = np.asarray(q_base, np.float64)
-    n_exact = 0
-    for s, e, ts, ti, done in pending:
-        if done is not None:
-            done.synchronize()
-        ts = ts.numpy()
-        ti = ti.numpy()
-        vP = np.where((ti < N) & np.isfinite(ts),
-                      a_vids[np.minimum(ti, N - 1)], -1)
-        exact = store.append_grid(vP, q_vids[s:e], blens_arr[s:e],
-                                  tips_arr[s:e], n_threads)
-        n_exact += vP.size
-        for k in range(e - s):
-            j = int(np.argmax(exact[k]))
-            best = float(exact[k, j])
-            st.q_best[s + k] = best
-            if np.isfinite(best):
-                _accept(proposals, q_nodes[s + k], int(anchors[int(ti[k, j])]),
-                        best, q_base[s + k], placement_thresh)
-    st.device_s = events.seconds()
-    st.decide_s = time.time() - t
+    with rt.tracer.span("spr.decide") as sp:
+        proposals = []
+        n_threads = max(1, rt.cfg.numCores)
+        blens_arr = np.asarray(q_blens, np.float64)
+        tips_arr = np.asarray(q_tips, np.uint8)
+        st.q_nodes = nodes_arr
+        st.q_best = np.full(K_total, -np.inf)
+        st.q_base = np.asarray(q_base, np.float64)
+        n_exact = 0
+        for s, e, ts, ti, done in pending:
+            if done is not None:
+                done.synchronize()
+            ts = ts.numpy()
+            ti = ti.numpy()
+            vP = np.where((ti < N) & np.isfinite(ts),
+                          a_vids[np.minimum(ti, N - 1)], -1)
+            exact = store.append_grid(vP, q_vids[s:e], blens_arr[s:e],
+                                      tips_arr[s:e], n_threads)
+            n_exact += vP.size
+            for k in range(e - s):
+                j = int(np.argmax(exact[k]))
+                best = float(exact[k, j])
+                st.q_best[s + k] = best
+                if np.isfinite(best):
+                    _accept(proposals, q_nodes[s + k],
+                            int(anchors[int(ti[k, j])]), best, q_base[s + k],
+                            placement_thresh)
+        st.device_s = events.seconds()
+    st.decide_s = sp.seconds
     return _apply(rt, root, proposals, params, counters, st, t0,
                   f"(proxy; {n_exact} exact re-scores) ")
 
@@ -453,86 +463,87 @@ def _screen_single_device_exact(rt, root: int, params, counters, t0, *,
     strict, fails, threshold, placement_thresh = params
     st = ScreenPass("exact")
     launches0 = append_scores_prestacked.launches
-    t = time.time()
-    q_nodes, q_vecs, q_blens, q_tips, q_base = _collect_queries(
-        rt, root, placement_thresh)
-    if not q_nodes:
-        return None, 0.0
-    pool = StackedDevicePool(rt, device)
-    pool.full_rebuild()
-    n_anchors = len(pool.row_of)
-    if n_anchors == 0:
-        return None, 0.0
-    st.collect_s = time.time() - t
+    with rt.tracer.span("spr.collect") as sp:
+        q_nodes, q_vecs, q_blens, q_tips, q_base = _collect_queries(
+            rt, root, placement_thresh)
+        if not q_nodes:
+            return None, 0.0
+        pool = StackedDevicePool(rt, device)
+        pool.full_rebuild()
+        n_anchors = len(pool.row_of)
+        if n_anchors == 0:
+            return None, 0.0
+    st.collect_s = sp.seconds
     stats.passes.append(st)
     K_total = len(q_nodes)
     st.queries, st.anchors = K_total, n_anchors
 
-    t = time.time()
-    n_prefix = pool.n_prefix
-    tin, tout = _euler_intervals(tree, root)
-    a_tin = np.full(pool.capacity, _NO_TIN, dtype=np.int32)
-    a_tin[:n_anchors] = tin[pool.node_arr[:n_anchors]]
-    dev_a_tin = upload(a_tin, device)
-    mm = upload(np.asarray(rt.model.mut_matrix,
-                            dtype=np.float32).reshape(1, 1, 16), device)
-    rf = upload(np.asarray(rt.model.refd.root_freqs,
-                            dtype=np.float32).reshape(1, 1, 4), device)
-    uer = rt.model.using_error_rate
-    gtr = float(rt.dc.globalTotRate)
-    tot_error = float(rt.model.tot_error or 0.0)
-    q_budget = OP.budget_for(q_vecs, 64)
-    nodes_arr = np.asarray(q_nodes)
-    events = _Events(device)
-    pending = []
-    for s in range(0, K_total, chunk):
-        e = min(K_total, s + chunk)
-        n_sub = e - s
-        nodes = nodes_arr[s:e]
-        packed = OP.pack_genome_lists(q_vecs[s:e], rt.refd.lRef, q_budget,
-                                      uer, dtype=np.float32)
-        Cflat = stack_fields_host(packed, pool.site_rates, pool.error_rates,
-                                  axis=-1).reshape(n_sub, 1, -1)
-        prm = np.stack([
-            np.asarray(q_blens[s:e], dtype=np.float32),
-            np.asarray(q_tips[s:e], dtype=np.float32),
-            np.full(n_sub, gtr, dtype=np.float32),
-            np.full(n_sub, tot_error, dtype=np.float32),
-        ], axis=-1).reshape(n_sub, 1, 4)
-        excl = _exclusions(tree, nodes, pool.row_of)
-        start = events.begin()
-        ts, ti = screen_chunk(
-            pool.dev_pool, pool.dev_valid, dev_a_tin, upload(Cflat, device),
-            upload(prm, device),
-            upload(tin[nodes].astype(np.int32), device),
-            upload(tout[nodes].astype(np.int32), device),
-            upload(excl, device), mm, rf, n_prefix=n_prefix, uer=uer)
-        ts, ti = to_host(ts, ti)
-        pending.append((s, e, ts, ti, events.end(start)))
-    st.chunks = len(pending)
-    st.kernel_launches = append_scores_prestacked.launches - launches0
-    st.pack_s = time.time() - t
+    with rt.tracer.span("spr.pack") as sp:
+        n_prefix = pool.n_prefix
+        tin, tout = _euler_intervals(tree, root)
+        a_tin = np.full(pool.capacity, _NO_TIN, dtype=np.int32)
+        a_tin[:n_anchors] = tin[pool.node_arr[:n_anchors]]
+        dev_a_tin = upload(a_tin, device)
+        mm = upload(np.asarray(rt.model.mut_matrix,
+                                dtype=np.float32).reshape(1, 1, 16), device)
+        rf = upload(np.asarray(rt.model.refd.root_freqs,
+                                dtype=np.float32).reshape(1, 1, 4), device)
+        uer = rt.model.using_error_rate
+        gtr = float(rt.dc.globalTotRate)
+        tot_error = float(rt.model.tot_error or 0.0)
+        q_budget = OP.budget_for(q_vecs, 64)
+        nodes_arr = np.asarray(q_nodes)
+        events = _Events(device)
+        pending = []
+        for s in range(0, K_total, chunk):
+            e = min(K_total, s + chunk)
+            n_sub = e - s
+            nodes = nodes_arr[s:e]
+            packed = OP.pack_genome_lists(q_vecs[s:e], rt.refd.lRef, q_budget,
+                                          uer, dtype=np.float32)
+            Cflat = stack_fields_host(packed, pool.site_rates,
+                                      pool.error_rates,
+                                      axis=-1).reshape(n_sub, 1, -1)
+            prm = np.stack([
+                np.asarray(q_blens[s:e], dtype=np.float32),
+                np.asarray(q_tips[s:e], dtype=np.float32),
+                np.full(n_sub, gtr, dtype=np.float32),
+                np.full(n_sub, tot_error, dtype=np.float32),
+            ], axis=-1).reshape(n_sub, 1, 4)
+            excl = _exclusions(tree, nodes, pool.row_of)
+            start = events.begin()
+            ts, ti = screen_chunk(
+                pool.dev_pool, pool.dev_valid, dev_a_tin,
+                upload(Cflat, device), upload(prm, device),
+                upload(tin[nodes].astype(np.int32), device),
+                upload(tout[nodes].astype(np.int32), device),
+                upload(excl, device), mm, rf, n_prefix=n_prefix, uer=uer)
+            ts, ti = to_host(ts, ti)
+            pending.append((s, e, ts, ti, events.end(start)))
+        st.chunks = len(pending)
+        st.kernel_launches = append_scores_prestacked.launches - launches0
+    st.pack_s = sp.seconds
 
-    t = time.time()
-    proposals = []
-    node_arr = pool.node_arr
-    st.q_nodes = nodes_arr
-    st.q_best = np.full(K_total, -np.inf)
-    st.q_base = np.asarray(q_base, np.float64)
-    for s, e, ts, ti, done in pending:
-        if done is not None:
-            done.synchronize()
-        ts = ts.numpy()
-        ti = ti.numpy()
-        for k in range(e - s):
-            best = float(ts[k, 0])
-            st.q_best[s + k] = best
-            if np.isfinite(best):
-                # screened in float32
-                _accept(proposals, q_nodes[s + k], int(node_arr[ti[k, 0]]),
-                        best, q_base[s + k], placement_thresh)
-    st.device_s = events.seconds()
-    st.decide_s = time.time() - t
+    with rt.tracer.span("spr.decide") as sp:
+        proposals = []
+        node_arr = pool.node_arr
+        st.q_nodes = nodes_arr
+        st.q_best = np.full(K_total, -np.inf)
+        st.q_base = np.asarray(q_base, np.float64)
+        for s, e, ts, ti, done in pending:
+            if done is not None:
+                done.synchronize()
+            ts = ts.numpy()
+            ti = ti.numpy()
+            for k in range(e - s):
+                best = float(ts[k, 0])
+                st.q_best[s + k] = best
+                if np.isfinite(best):
+                    # screened in float32
+                    _accept(proposals, q_nodes[s + k], int(node_arr[ti[k, 0]]),
+                            best, q_base[s + k], placement_thresh)
+        st.device_s = events.seconds()
+    st.decide_s = sp.seconds
     return _apply(rt, root, proposals, params, counters, st, t0, "")
 
 
@@ -551,72 +562,72 @@ def _screen_mesh(rt, root: int, params, counters, t0, *, mesh,
     tree = rt.tree
     strict, fails, threshold, placement_thresh = params
     st = ScreenPass("mesh")
-    t = time.time()
-    pool = DeviceTreePool(rt, mesh.device, mesh=mesh)
-    n_anchors = pool.refresh()
-    if n_anchors == 0:
-        return None, 0.0
-    q_nodes, q_vecs, q_blens, q_tips, q_base = _collect_queries(
-        rt, root, placement_thresh)
-    if not q_nodes:
-        return None, 0.0
-    st.collect_s = time.time() - t
+    with rt.tracer.span("spr.collect") as sp:
+        pool = DeviceTreePool(rt, mesh.device, mesh=mesh)
+        n_anchors = pool.refresh()
+        if n_anchors == 0:
+            return None, 0.0
+        q_nodes, q_vecs, q_blens, q_tips, q_base = _collect_queries(
+            rt, root, placement_thresh)
+        if not q_nodes:
+            return None, 0.0
+    st.collect_s = sp.seconds
     stats.passes.append(st)
     K = len(q_nodes)
     st.queries, st.anchors = K, n_anchors
 
-    t = time.time()
-    dm = device_model_from(rt.model, rt.dc, device=mesh.device)
-    q_budget = 256
-    while any(len(q) > q_budget for q in q_vecs):
-        q_budget *= 2
-    packed_q = OP.pack_genome_lists(q_vecs, rt.refd.lRef, q_budget,
-                                    rt.model.using_error_rate,
-                                    dtype=np.float32)
-    Q = stack_fields_host(packed_q, pool.site_rates, pool.error_rates,
-                          axis=-1).reshape(K, 1, -1)
-    blens = np.asarray(q_blens, dtype=np.float32)
-    tips = np.asarray(q_tips, dtype=bool)
-    qc = query_chunk
-    score_rows = []
-    for s in range(0, K, qc):
-        sub, bl, tp = Q[s:s + qc], blens[s:s + qc], tips[s:s + qc]
-        n_sub = sub.shape[0]
-        if n_sub < qc:  # pad the tail chunk so that it divides over dp
-            sub, bl, tp = (np.concatenate(
-                [a, np.repeat(a[:1], qc - n_sub, axis=0)], axis=0)
-                for a in (sub, bl, tp))
-        out = host_fetch(spr_screen_scores(
-            mesh, pool.dev_pool, put_global(mesh, sub, ("dp",)),
-            put_global(mesh, bl, ("dp",)), put_global(mesh, tp, ("dp",)),
-            dm))
-        score_rows.append(out[:n_sub])
-        st.chunks += 1
-    scores = np.concatenate(score_rows, axis=0)[:, :n_anchors]  # [K, N]
-    st.pack_s = time.time() - t
+    with rt.tracer.span("spr.pack") as sp:
+        dm = device_model_from(rt.model, rt.dc, device=mesh.device)
+        q_budget = 256
+        while any(len(q) > q_budget for q in q_vecs):
+            q_budget *= 2
+        packed_q = OP.pack_genome_lists(q_vecs, rt.refd.lRef, q_budget,
+                                        rt.model.using_error_rate,
+                                        dtype=np.float32)
+        Q = stack_fields_host(packed_q, pool.site_rates, pool.error_rates,
+                              axis=-1).reshape(K, 1, -1)
+        blens = np.asarray(q_blens, dtype=np.float32)
+        tips = np.asarray(q_tips, dtype=bool)
+        qc = query_chunk
+        score_rows = []
+        for s in range(0, K, qc):
+            sub, bl, tp = Q[s:s + qc], blens[s:s + qc], tips[s:s + qc]
+            n_sub = sub.shape[0]
+            if n_sub < qc:  # pad the tail chunk so that it divides over dp
+                sub, bl, tp = (np.concatenate(
+                    [a, np.repeat(a[:1], qc - n_sub, axis=0)], axis=0)
+                    for a in (sub, bl, tp))
+            out = host_fetch(spr_screen_scores(
+                mesh, pool.dev_pool, put_global(mesh, sub, ("dp",)),
+                put_global(mesh, bl, ("dp",)), put_global(mesh, tp, ("dp",)),
+                dm))
+            score_rows.append(out[:n_sub])
+            st.chunks += 1
+        scores = np.concatenate(score_rows, axis=0)[:, :n_anchors]  # [K, N]
+    st.pack_s = sp.seconds
 
     # host masking: own subtree, parent, sibling
-    t = time.time()
-    tin, tout = _euler_intervals(tree, root)
-    anchor_ids = np.asarray(pool.anchor_ids)
-    a_tin = tin[anchor_ids]
-    proposals = []
-    st.q_nodes = np.asarray(q_nodes)
-    st.q_best = np.full(K, -np.inf)
-    st.q_base = np.asarray(q_base, np.float64)
-    for k, node in enumerate(q_nodes):
-        invalid = (a_tin >= tin[node]) & (a_tin < tout[node])
-        parent = tree.up[node]
-        sibling = tree.children[parent][1 - tree.child_index(node)]
-        invalid |= (anchor_ids == parent) | (anchor_ids == sibling)
-        row = np.where(invalid, -np.inf, scores[k])
-        j = int(np.argmax(row))
-        st.q_best[k] = float(row[j])
-        if np.isfinite(row[j]):
-            # screened in float32
-            _accept(proposals, node, int(anchor_ids[j]), float(row[j]),
-                    q_base[k], placement_thresh)
-    st.decide_s = time.time() - t
+    with rt.tracer.span("spr.decide") as sp:
+        tin, tout = _euler_intervals(tree, root)
+        anchor_ids = np.asarray(pool.anchor_ids)
+        a_tin = tin[anchor_ids]
+        proposals = []
+        st.q_nodes = np.asarray(q_nodes)
+        st.q_best = np.full(K, -np.inf)
+        st.q_base = np.asarray(q_base, np.float64)
+        for k, node in enumerate(q_nodes):
+            invalid = (a_tin >= tin[node]) & (a_tin < tout[node])
+            parent = tree.up[node]
+            sibling = tree.children[parent][1 - tree.child_index(node)]
+            invalid |= (anchor_ids == parent) | (anchor_ids == sibling)
+            row = np.where(invalid, -np.inf, scores[k])
+            j = int(np.argmax(row))
+            st.q_best[k] = float(row[j])
+            if np.isfinite(row[j]):
+                # screened in float32
+                _accept(proposals, node, int(anchor_ids[j]), float(row[j]),
+                        q_base[k], placement_thresh)
+    st.decide_s = sp.seconds
     return _apply(rt, root, proposals, params, counters, st, t0,
                   f"(mesh {mesh.shape}) ")
 
@@ -641,12 +652,14 @@ def device_topology_update(rt, root: int, params,
     them)."""
     if counters is None:
         counters = SprCounters()
-    if mesh is not None:
-        if query_chunk is None:
-            query_chunk = 64 if use_pallas else 16
-        dp = mesh.shape["dp"]
-        return _screen_mesh(rt, root, params, counters, time.time(),
-                            mesh=mesh,
-                            query_chunk=query_chunk + (-query_chunk) % dp)
-    return _screen_single_device(rt, root, params, counters, time.time(),
-                                 device=torch.device(device))
+    with rt.tracer.span("spr.pass"):
+        if mesh is not None:
+            if query_chunk is None:
+                query_chunk = 64 if use_pallas else 16
+            dp = mesh.shape["dp"]
+            return _screen_mesh(rt, root, params, counters, time.time(),
+                                mesh=mesh,
+                                query_chunk=query_chunk + (-query_chunk) % dp)
+        return _screen_single_device(rt, root, params, counters,
+                                     time.time(),
+                                     device=torch.device(device))

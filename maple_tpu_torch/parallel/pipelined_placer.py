@@ -26,8 +26,9 @@ top-k pair is copied into pinned host buffers behind an event, and
 fresh pinned staging tensor per submit, so later host edits of the pool's
 mirror never reach a copy still in flight.
 
-``MAPLE_DEBUG_DEVBATCH=1`` sums the host time by the JAX twin's stages into
-``_prof`` (``BatchedPlacer._tick``) and appends them to the progress line:
+``BatchedPlacer._tick`` records the host time by the JAX twin's stages as
+spans ``pipelined.<stage>`` of the tracer; with ``MAPLE_DEBUG_DEVBATCH=1``
+their seconds (``_prof``) are appended to the progress line:
 ``export_queries`` (the batch's genome lists), ``pool_sync`` (the row update
 or rebuild of the pool's host mirror), ``pack_queries`` (packing and
 stacking the queries, the model arrays), ``dispatch`` (the uploads through
@@ -90,6 +91,8 @@ class PipelinedPlacer(BatchedPlacer):
     decision phase (_place_one: staleness re-scoring, minor absorption,
     float64 fine phase, serial apply)."""
 
+    SPAN_PREFIX = "pipelined."
+
     def __init__(self, rt, stats, device: torch.device,
                  batch_size: int = 64, expected_samples: int = 0,
                  topk: int = TOPK):
@@ -108,7 +111,7 @@ class PipelinedPlacer(BatchedPlacer):
         rt = self.rt
         pool = self.pool
         device = self.device
-        t0 = time.time() if self._prof is not None else None
+        t0 = time.time()
         # queries padded to the batch size by repeating the last one
         queries = [rt.kern.export(d) for _, d in batch]
         K = self.batch_size

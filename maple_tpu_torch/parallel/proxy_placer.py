@@ -42,26 +42,35 @@ result.  The screen thread is the only one that queues a collective, inside
 ``on_stream()``: a collective is ordered after the current stream, which is
 what orders the gather after the local top-k.
 
-``MAPLE_DEBUG_DEVBATCH=1`` splits the placer's host time into the JAX
-twin's stages, each accumulated on the thread that runs it (no lock):
+The placer records into its run's tracer (``runtime/phases.py``), on the
+thread that does the work:
 
-* ``_t_feat``, ``_n_changed``, ``_n_skipped`` (``_sync_pool``, the sync
-  thread): the anchor feature export, the changed nodes it exported and
-  those the fingerprint dedup dropped;
-* ``_t_upload`` (``_submit``, the screen thread): on CUDA the pinned
-  staging of the step's arrays and the queueing of their copies, not the
-  copies themselves;
-* ``_t_dispatch`` (the same): queueing the step and its result copies on
-  the pool's stream, not the device's work (``time_device`` has that);
-* ``_t_block`` (``_fetch``, the screen thread): the wait on the step's
-  done event, device work included;
-* the first full batch's feature counts (percentiles), "slow submit"
-  above 1.0 s and "slow fetch" above 0.5 s, and the sums in brackets on
-  the progress line of ``place_all``.
+* ``place.pool_init`` (the pool's allocation, on the thread that builds
+  the placer);
+* ``proxy.sync`` (``_sync_pool``, the sync thread): the anchor feature
+  export, with the counters ``proxy.rows_changed`` and
+  ``proxy.rows_skipped``, the changed nodes it exported and those the
+  fingerprint dedup dropped;
+* ``prep.batch`` (the prep thread): the next batch's terminal vectors;
+* ``proxy.query_export``, ``proxy.upload``, ``proxy.dispatch`` and
+  ``proxy.fetch`` (``_submit`` and ``_fetch``, the screen thread): the
+  batch's query features; on CUDA the pinned staging of the step's arrays
+  and the queueing of their copies, not the copies themselves; queueing
+  the step and its result copies on the pool's stream, not the device's
+  work (``time_device`` has that); the wait on the step's done event,
+  device work included;
+* on the main thread the three joins of ``place_all``,
+  ``place.wait.screen``, ``place.wait.prep`` and ``place.wait.sync``, and
+  ``place.seeded`` (``_place``: the engine's seeded placement) with the
+  model refreshes inside it as ``place.serial``.
 
-The JAX twin's "initial pool build spilled" line has no counterpart: the
-port scatters a sync's rows unpadded in one step and never spills.  With
-the variable unset none of this runs.
+The ``time_*`` counters are read from those spans.  With the trace switch
+(``MAPLE_DEBUG_DEVBATCH=1``) the placer also prints the first full
+batch's feature counts (percentiles), "slow submit" above 1.0 s and
+"slow fetch" above 0.5 s, and the stage sums in brackets on the progress
+line of ``place_all`` (``stage_split``).  The JAX twin's "initial pool
+build spilled" line has no counterpart: the port scatters a sync's rows
+unpadded in one step and never spills.
 
 Reference contract being replaced: the strictly serial stepwise addition
 loop, MAPLEv0.7.5.4.py:11692-11752 with the per-sample DFS at :7912-8293.
@@ -308,9 +317,12 @@ class EngineProxyPlacer:
         # doubles: one extra export, rare)
         self.fmax_anchor = FMAX_ANCHOR
         self.fmax_query = FMAX_QUERY
+        self.tracer = run.tracer
         n_expected = len(run.data) * 2 + 64
-        self.pool = ProxyPool(n_expected, device, force_bf16=fast_screen,
-                              fast=fast_screen, mesh=mesh)
+        with self.tracer.span("place.pool_init"):
+            self.pool = ProxyPool(n_expected, device,
+                                  force_bf16=fast_screen, fast=fast_screen,
+                                  mesh=mesh)
         if self.pool.AF.dtype == torch.bfloat16 and self.topm < BF16_TOPM \
                 and not fast_screen:
             # bf16 rounding reorders near-ties; a deeper seed list
@@ -318,76 +330,69 @@ class EngineProxyPlacer:
             self.topm = BF16_TOPM
         self.steps = 0             # proxy steps queued
         self.time_screen = 0.0     # host: uploads, queueing, result waits
-        self.time_place = 0.0
-        self.time_export = 0.0        # anchor feature exports
-        self.time_query_export = 0.0  # query feature exports
+        self.time_place = 0.0         # place.seeded
+        self.time_export = 0.0        # proxy.sync: anchor feature exports
+        self.time_query_export = 0.0  # proxy.query_export
         self.time_device = 0.0     # device seconds in proxy steps (CUDA)
-        self.time_wait = 0.0       # main-loop fetch-result wait
-        self.time_sync_join = 0.0  # main-loop pool-sync join
-        self.time_prep_wait = 0.0  # main-loop next-batch join
-        self._prof = bool(os.environ.get("MAPLE_DEBUG_DEVBATCH"))
-        if self._prof:             # the stage split (module docstring)
-            self._t_feat = self._t_upload = 0.0
-            self._t_dispatch = self._t_block = 0.0
-            self._n_changed = self._n_skipped = 0
-            self._nf_printed = False
+        self.time_wait = 0.0       # place.wait.screen
+        self.time_sync_join = 0.0  # place.wait.sync
+        self.time_prep_wait = 0.0  # place.wait.prep
+        self._nf_printed = False
 
     # ------------------------------------------------------------------
     def _sync_pool(self, changed: np.ndarray):
         """Export features for ``changed`` nodes; returns the host scatter
         arrays (rows, idx, w, valid) of the next step.  Rows whose features
         equal their last export are dropped (fingerprint dedup)."""
-        t0 = time.time()
-        pool = self.pool
-        changed = np.unique(changed)
-        rows = pool.assign_rows(changed)
-        if rows is None:
-            raise RuntimeError("proxy pool capacity exhausted")
-        idx, w, valid, max_nf, skip = self.eng.export_feats(
-            changed, pool.d_hash, pool.g_buckets,
-            self.fmax_anchor, use_fp=True)
-        if self._prof:
-            self._t_feat += time.time() - t0
-            self._n_changed += len(changed)
-            self._n_skipped += int(skip.sum())
-        while max_nf >= self.fmax_anchor:
-            self.fmax_anchor *= 2
-            print(f"[proxy] anchor feature budget -> "
-                  f"{self.fmax_anchor}", flush=True)
+        with self.tracer.span("proxy.sync") as sp:
+            pool = self.pool
+            changed = np.unique(changed)
+            rows = pool.assign_rows(changed)
+            if rows is None:
+                raise RuntimeError("proxy pool capacity exhausted")
             idx, w, valid, max_nf, skip = self.eng.export_feats(
                 changed, pool.d_hash, pool.g_buckets,
-                self.fmax_anchor)
-        if skip.any():
-            keep = ~skip
-            rows = rows[keep]
-            idx = idx[keep]
-            w = w[keep]
-            valid = valid[keep]
-        fb = _f_bucket(max_nf, self.fmax_anchor)
-        if fb < idx.shape[1]:
-            idx = np.ascontiguousarray(idx[:, :fb])
-            w = np.ascontiguousarray(w[:, :fb])
-        self.time_export += time.time() - t0
+                self.fmax_anchor, use_fp=True)
+            self.tracer.count("proxy.rows_changed", len(changed))
+            self.tracer.count("proxy.rows_skipped", int(skip.sum()))
+            while max_nf >= self.fmax_anchor:
+                self.fmax_anchor *= 2
+                print(f"[proxy] anchor feature budget -> "
+                      f"{self.fmax_anchor}", flush=True)
+                idx, w, valid, max_nf, skip = self.eng.export_feats(
+                    changed, pool.d_hash, pool.g_buckets,
+                    self.fmax_anchor)
+            if skip.any():
+                keep = ~skip
+                rows = rows[keep]
+                idx = idx[keep]
+                w = w[keep]
+                valid = valid[keep]
+            fb = _f_bucket(max_nf, self.fmax_anchor)
+            if fb < idx.shape[1]:
+                idx = np.ascontiguousarray(idx[:, :fb])
+                w = np.ascontiguousarray(w[:, :fb])
+        self.time_export += sp.seconds
         return rows, idx, w, valid
 
     def _export_queries(self, vids: np.ndarray):
         """Query-feature export for one batch (engine-side, read-only
         over the immutable terminal vectors)."""
-        t0 = time.time()
-        pool = self.pool
-        qidx, qw, max_nf = self.eng.export_query_feats(
-            vids, pool.d_hash, pool.g_buckets, self.fmax_query)
-        while max_nf >= self.fmax_query:
-            self.fmax_query *= 2
-            print(f"[proxy] query feature budget -> "
-                  f"{self.fmax_query}", flush=True)
+        with self.tracer.span("proxy.query_export") as sp:
+            pool = self.pool
             qidx, qw, max_nf = self.eng.export_query_feats(
                 vids, pool.d_hash, pool.g_buckets, self.fmax_query)
-        fbq = _f_bucket(max_nf, self.fmax_query)
-        if fbq < qidx.shape[1]:
-            qidx = np.ascontiguousarray(qidx[:, :fbq])
-            qw = np.ascontiguousarray(qw[:, :fbq])
-        self.time_query_export += time.time() - t0
+            while max_nf >= self.fmax_query:
+                self.fmax_query *= 2
+                print(f"[proxy] query feature budget -> "
+                      f"{self.fmax_query}", flush=True)
+                qidx, qw, max_nf = self.eng.export_query_feats(
+                    vids, pool.d_hash, pool.g_buckets, self.fmax_query)
+            fbq = _f_bucket(max_nf, self.fmax_query)
+            if fbq < qidx.shape[1]:
+                qidx = np.ascontiguousarray(qidx[:, :fbq])
+                qw = np.ascontiguousarray(qw[:, :fbq])
+        self.time_query_export += sp.seconds
         return qidx, qw
 
     def _submit(self, vids: np.ndarray, sync) -> _Screen:
@@ -397,23 +402,23 @@ class EngineProxyPlacer:
         only."""
         pool = self.pool
         device = pool.device
+        tracer = self.tracer
         qidx, qw = self._export_queries(vids)
-        if self._prof:
+        if tracer.traced:
             self._feature_counts(vids, qw, sync[2])
-        t0 = time.time()
-        rows, aidx, aw, avalid = sync if pool.mesh is None \
-            else local_updates(pool.mesh, pool.capacity, *sync)
         start = done = None
-        with pool.on_stream():
-            if pool.stream is not None:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-            args = (pool.AF, pool.valid, upload(rows, device),
-                    upload(aidx, device), upload(aw, device),
-                    upload(avalid, device), upload(qidx, device),
-                    upload(qw, device))
-            if self._prof:
-                t1 = time.time()
+        with tracer.span("proxy.upload") as up:
+            rows, aidx, aw, avalid = sync if pool.mesh is None \
+                else local_updates(pool.mesh, pool.capacity, *sync)
+            with pool.on_stream():
+                if pool.stream is not None:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                args = (pool.AF, pool.valid, upload(rows, device),
+                        upload(aidx, device), upload(aw, device),
+                        upload(avalid, device), upload(qidx, device),
+                        upload(qw, device))
+        with tracer.span("proxy.dispatch") as disp, pool.on_stream():
             if pool.mesh is None:
                 ts, ti = proxy_step(*args, topm=self.topm)
             else:
@@ -424,14 +429,11 @@ class EngineProxyPlacer:
                 done = torch.cuda.Event(enable_timing=True)
                 done.record()
         self.steps += 1
-        dt = time.time() - t0
+        dt = up.seconds + disp.seconds
         self.time_screen += dt
-        if self._prof:
-            self._t_upload += t1 - t0
-            self._t_dispatch += time.time() - t1
-            if dt > 1.0:
-                print(f"[proxy] slow submit {dt:.1f}s (R={len(rows)}, "
-                      f"cap={pool.capacity})", flush=True)
+        if tracer.traced and dt > 1.0:
+            print(f"[proxy] slow submit {dt:.1f}s (R={len(rows)}, "
+                  f"cap={pool.capacity})", flush=True)
         # rows are assigned while this step is in flight: snapshot the
         # row -> node mapping as of its submission
         return _Screen(ts, ti, start, done, pool.node_arr.copy())
@@ -439,17 +441,15 @@ class EngineProxyPlacer:
     def _fetch(self, screen: _Screen):
         """Block on one step's results; returns (scores, rows, node_arr)
         as numpy arrays."""
-        t0 = time.time()
-        if screen.done is not None:
-            screen.done.synchronize()
-            self.time_device += screen.start.elapsed_time(screen.done) / 1e3
-        res = screen.ts.numpy(), screen.ti.numpy(), screen.node_arr
-        dt = time.time() - t0
-        self.time_screen += dt
-        if self._prof:
-            self._t_block += dt
-            if dt > 0.5:
-                print(f"[proxy] slow fetch {dt:.2f}s", flush=True)
+        with self.tracer.span("proxy.fetch") as sp:
+            if screen.done is not None:
+                screen.done.synchronize()
+                self.time_device += \
+                    screen.start.elapsed_time(screen.done) / 1e3
+            res = screen.ts.numpy(), screen.ti.numpy(), screen.node_arr
+        self.time_screen += sp.seconds
+        if self.tracer.traced and sp.seconds > 0.5:
+            print(f"[proxy] slow fetch {sp.seconds:.2f}s", flush=True)
         return res
 
     def _feature_counts(self, vids, qw, aw):
@@ -471,42 +471,49 @@ class EngineProxyPlacer:
     def _place(self, vids, first_sample: int, res, refresh_every: int,
                checkpoint=None):
         """Map screen rows to seeds and place through the engine in
-        model-refresh-aligned chunks."""
-        t0 = time.time()
-        ts, ti, node_arr = res
-        seeds = node_arr[ti].astype(np.int32)
-        seeds[~np.isfinite(ts)] = -1
-        run = self.run
-        cfg = run.cfg
-        eng = self.eng
-        s = 0
-        num = first_sample
-        n = len(vids)
-        while s < n:
-            k = n - s
-            if refresh_every:
-                if num % refresh_every == 0:
-                    eng.flush_pseudo_counts(run.model.pseudo_counts)
-                    run.model.update_from_pseudo_counts()
-                    eng.sync_model()
-                k = min(k, refresh_every - num % refresh_every)
-            k = min(k, cfg.saveInitialTreeEvery
-                    - num % cfg.saveInitialTreeEvery)
-            eng.place_batch_seeded(vids[s:s + k], num, seeds[s:s + k],
-                                   self.num_cores, self.seed_budget)
-            num += k
-            s += k
-            if checkpoint and num % cfg.saveInitialTreeEvery == 0:
-                checkpoint(num)
-        self.time_place += time.time() - t0
+        model-refresh-aligned chunks (span ``place.seeded``, the refreshes
+        inside it ``place.serial``)."""
+        tracer = self.tracer
+        with tracer.span("place.seeded") as sp:
+            ts, ti, node_arr = res
+            seeds = node_arr[ti].astype(np.int32)
+            seeds[~np.isfinite(ts)] = -1
+            run = self.run
+            cfg = run.cfg
+            eng = self.eng
+            s = 0
+            num = first_sample
+            n = len(vids)
+            while s < n:
+                k = n - s
+                if refresh_every:
+                    if num % refresh_every == 0:
+                        with tracer.span("place.serial"):
+                            eng.flush_pseudo_counts(run.model.pseudo_counts)
+                            run.model.update_from_pseudo_counts()
+                            eng.sync_model()
+                    k = min(k, refresh_every - num % refresh_every)
+                k = min(k, cfg.saveInitialTreeEvery
+                        - num % cfg.saveInitialTreeEvery)
+                eng.place_batch_seeded(vids[s:s + k], num, seeds[s:s + k],
+                                       self.num_cores, self.seed_budget)
+                num += k
+                s += k
+                if checkpoint and num % cfg.saveInitialTreeEvery == 0:
+                    checkpoint(num)
+        self.time_place += sp.seconds
         return num
 
     def stage_split(self) -> str:
-        """The bracketed stage sums of the JAX twin's progress line."""
-        return (f"[upload {self._t_upload:.1f} dispatch "
-                f"{self._t_dispatch:.1f} block {self._t_block:.1f} feat "
-                f"{self._t_feat:.1f} rows {self._n_changed} skip "
-                f"{self._n_skipped}]")
+        """The bracketed stage sums of the JAX twin's progress line, read
+        from the tracer."""
+        tr = self.tracer
+        return (f"[upload {tr.inclusive('proxy.upload'):.1f} dispatch "
+                f"{tr.inclusive('proxy.dispatch'):.1f} block "
+                f"{tr.inclusive('proxy.fetch'):.1f} sync "
+                f"{tr.inclusive('proxy.sync'):.1f} rows "
+                f"{tr.counter('proxy.rows_changed')} skip "
+                f"{tr.counter('proxy.rows_skipped')}]")
 
     # ------------------------------------------------------------------
     def place_all(self, distances, num_samples: int, checkpoint=None,
@@ -517,6 +524,7 @@ class EngineProxyPlacer:
         run = self.run
         eng = self.eng
         cfg = run.cfg
+        tracer = self.tracer
         refresh_every = (cfg.updateSubstMatrixEveryThisSamples
                          if cfg.model != "JC" else 0)
         eng.screen_log(True)
@@ -529,19 +537,20 @@ class EngineProxyPlacer:
         changed = np.arange(n_nodes, dtype=np.int32)
 
         def next_batch():
-            names = []
-            for _ in range(self.batch_size):
-                if not distances:
-                    break
-                _, sample = distances.pop()
-                run.names_in_tree.append(sample)
-                names.append(sample)
-            if not names:
-                return np.empty(0, np.int64)
-            diffs = [run.data[s] for s in names]
-            for s in names:
-                run.data[s] = None
-            return eng.terminal_vids_batch(diffs)
+            with tracer.span("prep.batch"):
+                names = []
+                for _ in range(self.batch_size):
+                    if not distances:
+                        break
+                    _, sample = distances.pop()
+                    run.names_in_tree.append(sample)
+                    names.append(sample)
+                if not names:
+                    return np.empty(0, np.int64)
+                diffs = [run.data[s] for s in names]
+                for s in names:
+                    run.data[s] = None
+                return eng.terminal_vids_batch(diffs)
 
         vids = next_batch()
         if not len(vids):
@@ -562,9 +571,9 @@ class EngineProxyPlacer:
         # screen: the whole device round trip (query export over immutable
         #   terminal vectors, uploads, the step, the wait for its results),
         #   the only thread that touches the pool's tensors.
-        with ThreadPoolExecutor(max_workers=1) as prep_pool, \
-                ThreadPoolExecutor(max_workers=1) as sync_pool, \
-                ThreadPoolExecutor(max_workers=1) as screen_pool:
+        with ThreadPoolExecutor(1, "proxy.prep") as prep_pool, \
+                ThreadPoolExecutor(1, "proxy.sync") as sync_pool, \
+                ThreadPoolExecutor(1, "proxy.screen") as screen_pool:
             # the first batch's pool export runs here: its tree reads
             # finish before any place can mutate
             sync0 = self._sync_pool(changed)
@@ -574,16 +583,16 @@ class EngineProxyPlacer:
                 cur_vids, fetch_fut = pend
                 sync_fut = sync_pool.submit(
                     lambda: self._sync_pool(eng.screen_drain()))
-                t_wait = time.time()
-                res = fetch_fut.result()
-                self.time_wait += time.time() - t_wait
-                t_wait = time.time()
-                nxt = prep_fut.result() if prep_fut is not None \
-                    else np.empty(0, np.int64)
-                self.time_prep_wait += time.time() - t_wait
-                t_wait = time.time()
-                sync_res = sync_fut.result()  # join: tree reads done
-                self.time_sync_join += time.time() - t_wait
+                with tracer.span("place.wait.screen") as sp:
+                    res = fetch_fut.result()
+                self.time_wait += sp.seconds
+                with tracer.span("place.wait.prep") as sp:
+                    nxt = prep_fut.result() if prep_fut is not None \
+                        else np.empty(0, np.int64)
+                self.time_prep_wait += sp.seconds
+                with tracer.span("place.wait.sync") as sp:
+                    sync_res = sync_fut.result()  # join: tree reads done
+                self.time_sync_join += sp.seconds
                 fetch_next = None
                 if len(nxt):
                     fetch_next = screen_pool.submit(fetch_job, nxt,
@@ -603,7 +612,7 @@ class EngineProxyPlacer:
                            f"{self.time_place:.1f}s export "
                            f"{self.time_export + self.time_query_export:.1f}"
                            f"s)")
-                    if self._prof:
+                    if tracer.traced:
                         msg += f" {self.stage_split()}"
                     print(msg, flush=True)
         eng.screen_log(False)

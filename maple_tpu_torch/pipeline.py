@@ -33,6 +33,7 @@ from .models.em import expectation_maximization_rates
 from .refdata import Model, RefData
 from .native.engine import native_engine_supported
 from .runtime.partials import TreeRuntime
+from .runtime.phases import Tracer, method_span
 from .runtime.tree import (PhyloTree, give_internal_node_names,
                            make_tree_binary, set_all_dirty)
 from .search.blen import optimize_branch_lengths
@@ -132,10 +133,13 @@ class Run:
         self.pplacer = None
         self.legacy_placer = None
         self.timings = {"finding": 0.0, "placing": 0.0, "topology": 0.0}
+        # the spans and counters of this run (runtime/phases.py)
+        self.tracer = Tracer()
         self.names_in_tree = []
         self.stats = PlacementStats()
 
     # ------------------------------------------------------------------
+    @method_span("load")
     def load(self):
         cfg = self.cfg
         from .refdata import reset_ambiguities
@@ -313,7 +317,8 @@ class Run:
             tree.add_node()
             tree.name[-1] = 0
             self.tree = tree
-            self.rt = TreeRuntime(tree, self.refd, self.model, dc, cfg)
+            self.rt = TreeRuntime(tree, self.refd, self.model, dc, cfg,
+                                  tracer=self.tracer)
             self.rt.time = self.time_ctx
             t1 = 0
             if self.rt.kern.name == "native" \
@@ -524,6 +529,7 @@ class Run:
         from .native.engine import NativePlacementEngine
         from .parallel.proxy_placer import EngineProxyPlacer
         cfg = self.cfg
+        tracer = self.tracer
         eng = NativePlacementEngine(self.rt, self.data[first_sample])
         self.engine = eng  # kept for phase profiling (engine.profile())
         self.data[first_sample] = None
@@ -536,7 +542,8 @@ class Run:
         # serial warmup placements: __init__ reads only cfg/env and
         # queues device allocations — it never touches the tree
         from concurrent.futures import ThreadPoolExecutor
-        _init_pool = ThreadPoolExecutor(max_workers=1)
+        _init_pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="place.init")
         placer_fut = _init_pool.submit(
             EngineProxyPlacer, self, eng, num_cores=cfg.numCores,
             batch_size=cfg.device_proxy_batch,
@@ -544,16 +551,17 @@ class Run:
             seed_budget=cfg.device_seed_budget,
             device=self.device if mesh is None else mesh.device,
             fast_screen=cfg.fast, mesh=mesh)
-        while distances and num_samples < warmup:
-            if num_samples % upd == 0 and cfg.model != "JC":
-                eng.flush_pseudo_counts(self.model.pseudo_counts)
-                self.model.update_from_pseudo_counts()
-                eng.sync_model()
-            _, sample = distances.pop()
-            self.names_in_tree.append(sample)
-            eng.place(self.data[sample], num_samples)
-            self.data[sample] = None
-            num_samples += 1
+        with tracer.span("place.serial"):
+            while distances and num_samples < warmup:
+                if num_samples % upd == 0 and cfg.model != "JC":
+                    eng.flush_pseudo_counts(self.model.pseudo_counts)
+                    self.model.update_from_pseudo_counts()
+                    eng.sync_model()
+                _, sample = distances.pop()
+                self.names_in_tree.append(sample)
+                eng.place(self.data[sample], num_samples)
+                self.data[sample] = None
+                num_samples += 1
 
         def checkpoint(num):
             # restartable-state checkpoint (reference :11754-11760)
@@ -566,12 +574,14 @@ class Run:
                       "w") as f:
                 f.write(s)
 
-        placer = placer_fut.result()
+        with tracer.span("place.wait.init"):
+            placer = placer_fut.result()
         _init_pool.shutdown(wait=False)
         self.proxy_placer = placer  # kept for phase attribution
         placer.place_all(distances, num_samples, checkpoint)
         eng.flush_pseudo_counts(self.model.pseudo_counts)
-        root = eng.export_to_tree(self.stats)
+        with tracer.span("place.export_tree"):
+            root = eng.export_to_tree(self.stats)
         self.timings["finding"] += time.time() - start \
             - placer.time_place
         self.timings["placing"] += placer.time_place
@@ -581,6 +591,7 @@ class Run:
         return root
 
     # ------------------------------------------------------------------
+    @method_span("place")
     def build_initial_tree_device(self, warmup: int = 256,
                                   batch_size: int = 64, mesh=None):
         """Device placement on ``self.device``: the proxy screen feeding
@@ -603,7 +614,8 @@ class Run:
         tree.add_node()
         tree.name[-1] = 0
         self.tree = tree
-        self.rt = TreeRuntime(tree, self.refd, self.model, dc, cfg)
+        self.rt = TreeRuntime(tree, self.refd, self.model, dc, cfg,
+                              tracer=self.tracer)
         t1 = 0
         legacy = bool(os.environ.get("MAPLE_DEVICE_LEGACY"))
         if self.rt.kern.name == "native" \
@@ -774,6 +786,7 @@ class Run:
                     model.set_error_rates(model.error_rate, err_rates)
         return mat
 
+    @method_span("post_placement")
     def post_placement(self):
         """EM + branch-length optimization after the initial tree
         (reference :11768-11918)."""
@@ -895,6 +908,7 @@ class Run:
         else:
             set_all_dirty(self.tree, root)
 
+    @method_span("write")
     def write_tree(self, suffix: str, root: Optional[int] = None,
                    annotations: Optional[AnnotationOptions] = None):
         if self.rt.native_session is not None:
@@ -999,7 +1013,8 @@ class Run:
         self.root = root
         self.names_in_tree = names_in_tree
         self.samples_in_tree = set(names_dict)
-        self.rt = TreeRuntime(tree, self.refd, self.model, self.dc, cfg)
+        self.rt = TreeRuntime(tree, self.refd, self.model, self.dc, cfg,
+                              tracer=self.tracer)
         # online time mode: the runtime needs the time context BEFORE the
         # first_setup recompute so tip dateData and time vectors are built
         # from the input tree (reference reCalculateAllGenomeListsTime
@@ -1072,17 +1087,31 @@ class Run:
 
     # ------------------------------------------------------------------
     def run(self):
-        """Full pipeline: de-novo or online inference."""
+        """Full pipeline: de-novo or online inference.  What it runs
+        records into ``self.tracer`` (as span ``run``), which is closed
+        and kept in ``runtime.phases.recent()`` when it returns."""
+        try:
+            with self.tracer.span("run"):
+                whole = self._stages()
+            if whole:
+                print(f"Phase breakdown (exclusive seconds by span; "
+                      f"counters): {self.tracer.breakdown()}", flush=True)
+        finally:
+            self.tracer.close()
+
+    def _stages(self) -> bool:
+        """The stages of ``run``; False where a mode that is not inference
+        returned early."""
         cfg = self.cfg
         if cfg.assignmentFile or cfg.assignmentFileCSV:
             from .analysis.lineages import run_lineage_assignment_mode
             run_lineage_assignment_mode(cfg)
-            return
+            return False
         if cfg.inputRFtrees:
             from .analysis.rf import run_rf_mode
             out = run_rf_mode(cfg)
             print(f"RF distances written to {out}")
-            return
+            return False
         if os.path.isfile(cfg.output + "_tree.tree") and not cfg.overwrite:
             raise FileExistsError(
                 f"{cfg.output}_tree.tree exists; use overwrite")
@@ -1095,7 +1124,7 @@ class Run:
                                  "--inputTree")
             from .analysis.placements import find_sample_placements_mode
             find_sample_placements_mode(self)
-            return
+            return False
         if cfg.lineageRefs:
             if not cfg.inputTree:
                 raise ValueError("--lineageRefs requires --inputTree")
@@ -1107,7 +1136,7 @@ class Run:
                 raise ValueError("lineage reference genome differs from "
                                  "the alignment reference")
             assign_lineages_by_reference_placement(self, lineage_data)
-            return
+            return False
         if getattr(cfg, "device_placement", False) and not cfg.inputTree:
             self.build_initial_tree_device(
                 warmup=cfg.device_warmup, batch_size=cfg.device_batch_size)
@@ -1163,12 +1192,7 @@ class Run:
               + str(self.timings["placing"]))
         print("Time spent in topology updates: "
               + str(self.timings["topology"]))
-        phases = self.rt.phase_times
-        if phases:
-            breakdown = ", ".join(f"{k}={v:.2f}s"
-                                  for k, v in sorted(phases.items()))
-            print(f"Phase breakdown (beyond the reference's stats): "
-                  f"{breakdown}", flush=True)
+        return True
 
     def _after_reroot(self):
         cfg = self.cfg
@@ -1199,6 +1223,7 @@ class Run:
             if ses is not None:
                 ses.close()
 
+    @method_span("write")
     def write_outputs(self, suffix_add="", from_rounds=None):
         """Final outputs for one round (reference :12481-12555 and the
         nRounds==0 path :12556-12630).  ``from_rounds`` mirrors a quirk of

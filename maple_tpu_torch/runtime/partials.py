@@ -19,6 +19,7 @@ from ..core import genomelist as gl
 from ..core import kernels as K
 from ..core.genomelist import TYPE_N, TYPE_O, TYPE_R
 from ..refdata import Model, RefData
+from .phases import PHASES, Tracer
 from .tree import PhyloTree
 
 
@@ -29,7 +30,7 @@ class TreeRuntime:
 
     def __init__(self, tree: PhyloTree, refd: RefData, model: Model,
                  dc: DerivedConfig, cfg: MapleConfig,
-                 backend: str = None):
+                 backend: str = None, tracer: Tracer = None):
         self.tree = tree
         self.refd = refd
         self.model = model
@@ -57,10 +58,11 @@ class TreeRuntime:
         # collected list's id must never be reused by a new list
         self._tag_lists = []
         self.num_nodes_stats = [0, 0, 0, 0, 0, 0]  # nodes, nucs, Rs, Ns, Os, MATmuts
-        # wall-clock accumulation per pipeline phase (tree_lk /
-        # recalculate / em / blen / root_search), printed by the driver
-        # next to the reference's timeFinding/timePlacing stats
-        self.phase_times = {}
+        # the run's phase tracer (runtime/phases.py); phase_times is a
+        # live view of its inclusive seconds by pipeline phase (tree_lk /
+        # recalculate / em / blen / root_search)
+        self.tracer = tracer if tracer is not None else Tracer()
+        self.phase_times = self.tracer.totals(PHASES)
         # Monotone counter bumped by every vector/topology mutation path
         # (update_partials, update_blen, backend conversion, engine-phase
         # exports/sessions, re-rooting).  recalculate_all records
@@ -984,7 +986,9 @@ class TreeRuntime:
 
     # ------------------------------------------------------------------
     def add_phase_time(self, phase: str, dt: float):
-        self.phase_times[phase] = self.phase_times.get(phase, 0.0) + dt
+        """Record ``phase`` as a span of the tracer that lasted ``dt``
+        seconds and ends now."""
+        self.tracer.add(phase, dt)
 
     def calculate_tree_likelihood(self, root: int, separate: bool = False):
         """Full-tree log-likelihood: post-order merges with LK plus root

@@ -1421,130 +1421,141 @@ def _run_spr_rounds_body(run, rounds, _time):
     rt = run.rt
     tree = run.tree
     abayes = cfg.SPRTA
+    tracer = rt.tracer
     for n_round, (strict, fails, threshold, placement_thresh) in \
             enumerate(rounds):
-        abayes_on = abayes
-        print(f"Starting topological improvement traversal number "
-              f"{n_round + 1}", flush=True)
-        start = _time.time()
-        run._set_all_dirty(run.root)
-        rt.recalculate_all(run.root)
-        if not cfg.doNotOptimiseBLengths:
-            from .blen import optimize_branch_lengths
+        with tracer.span("spr.round"):
+            abayes_on = abayes
+            print(f"Starting topological improvement traversal number "
+                  f"{n_round + 1}", flush=True)
+            start = _time.time()
+            run._set_all_dirty(run.root)
+            rt.recalculate_all(run.root)
+            if not cfg.doNotOptimiseBLengths:
+                from .blen import optimize_branch_lengths
+                lk = rt.calculate_tree_likelihood(run.root)
+                print(f"Preliminary branch length optimization from LK: "
+                      f"{lk}")
+                from ..native.engine import run_native_blen_loop
+                with tracer.span("blen"):
+                    sub_round = run_native_blen_loop(rt, run.root)
+                if sub_round is None:
+                    improvement = optimize_branch_lengths(rt, run.root)
+                    sub_round = 0
+                    while sub_round < 20 and improvement:
+                        sub_round += 1
+                        improvement = optimize_branch_lengths(rt, run.root)
+                lk = rt.calculate_tree_likelihood(run.root)
+                print(f"branch length finalization subround "
+                      f"{sub_round + 1} final LK: {lk}", flush=True)
+            run._set_all_dirty(run.root)
+            rt.recalculate_all(run.root)
+            pre_lk = rt.calculate_tree_likelihood(run.root)
+            print(f"Likelihood before SPR moves: {pre_lk}", flush=True)
+            # the device screen cannot produce SPRTA posteriors: with SPRTA
+            # requested and numCores 1 the pass stays serial
+            parallelize = cfg.numCores > 1 \
+                or (cfg.device_topology and not abayes_on)
+            if parallelize:
+                new_root, improvement = _parallel_update(
+                    run, (strict, fails, threshold, placement_thresh),
+                    abayes_on)
+            else:
+                with tracer.span("spr.crawl"):
+                    new_root, improvement = start_topology_updates(
+                        rt, run.root, strict, fails, threshold,
+                        placement_thresh, check_each_spr=cfg.debugging,
+                        abayes_on=abayes_on,
+                        network_output=cfg.networkOutput)
+            if new_root is not None:
+                run.root = new_root
+            run.timings["topology"] += _time.time() - start
+            print(f"LK improvement apparently brought: {improvement}")
+            rt.recalculate_all(run.root)
+            post_lk = rt.calculate_tree_likelihood(run.root)
+            print(f"Likelihood after SPR moves: {post_lk}")
+            run.write_tree(f"_round{n_round + 1}_preliminary_tree.tree")
+
+            # subrounds on nodes affected by changes
+            start = _time.time()
+            sub_round = 0
+            while sub_round < 20:
+                print(f"Topological subround {sub_round + 1}", flush=True)
+                if parallelize:
+                    if rt.native_session is not None:
+                        num_dirty, num_nodes = \
+                            rt.native_session.count_dirty()
+                    else:
+                        from ..runtime.tree import count_dirty_nodes
+                        num_dirty, num_nodes = count_dirty_nodes(tree,
+                                                                 run.root)
+                if parallelize and num_dirty > 0.1 * num_nodes:
+                    new_root, improvement = _parallel_update(
+                        run, (strict, fails, threshold, placement_thresh),
+                        abayes_on)
+                else:
+                    with tracer.span("spr.crawl"):
+                        new_root, improvement = start_topology_updates(
+                            rt, run.root, strict, fails, threshold,
+                            placement_thresh, check_each_spr=cfg.debugging,
+                            abayes_on=abayes_on,
+                            network_output=cfg.networkOutput)
+                if new_root is not None:
+                    run.root = new_root
+                print(f"LK improvement apparently brought: {improvement}",
+                      flush=True)
+                if not cfg.noSubroundTrees:
+                    run.write_tree(f"_round{n_round + 1}_subround"
+                                   f"{sub_round + 1}_preliminary_tree.tree")
+                if improvement \
+                        < cfg.thresholdLogLKTopologySubRoundImprovement:
+                    break
+                sub_round += 1
+            rt.recalculate_all(run.root)
+            post_lk = rt.calculate_tree_likelihood(run.root)
+            print(f"Likelihood after SPR subrounds: {post_lk}", flush=True)
+            run.timings["topology"] += _time.time() - start
+
+            # EM + branch lengths after this round (reference :12397-12478)
             lk = rt.calculate_tree_likelihood(run.root)
-            print(f"Preliminary branch length optimization from LK: {lk}")
-            from ..native.engine import run_native_blen_loop
-            sub_round = run_native_blen_loop(rt, run.root)
-            if sub_round is None:
+            print(f"Initial LK before EM: {lk}", flush=True)
+            run.run_em_step(rates_update="rounds")
+            rt.recalculate_all(run.root)
+            lk = rt.calculate_tree_likelihood(run.root)
+            print(f"LK after one round of EM: {lk}")
+            if cfg.estimateErrorRate or cfg.estimateSiteSpecificErrorRate:
+                old_lk = float("-inf")
+                num_steps = 0
+                while lk - old_lk > 1.0 and num_steps < 20:
+                    if not cfg.doNotOptimiseBLengths:
+                        from .blen import optimize_branch_lengths
+                        run._set_all_dirty(run.root)
+                        optimize_branch_lengths(rt, run.root)
+                        rt.recalculate_all(run.root)
+                    run.run_em_step(rates_update="using")
+                    rt.recalculate_all(run.root)
+                    old_lk = lk
+                    lk = rt.calculate_tree_likelihood(run.root)
+                    num_steps += 1
+            if not cfg.doNotOptimiseBLengths:
+                from .blen import optimize_branch_lengths
+                rt.recalculate_all(run.root)
+                run._set_all_dirty(run.root)
                 improvement = optimize_branch_lengths(rt, run.root)
                 sub_round = 0
                 while sub_round < 20 and improvement:
                     sub_round += 1
                     improvement = optimize_branch_lengths(rt, run.root)
-            lk = rt.calculate_tree_likelihood(run.root)
-            print(f"branch length finalization subround {sub_round + 1} "
-                  f"final LK: {lk}", flush=True)
-        run._set_all_dirty(run.root)
-        rt.recalculate_all(run.root)
-        pre_lk = rt.calculate_tree_likelihood(run.root)
-        print(f"Likelihood before SPR moves: {pre_lk}", flush=True)
-        # the device screen cannot produce SPRTA posteriors: with SPRTA
-        # requested and numCores 1 the pass stays serial
-        parallelize = cfg.numCores > 1 \
-            or (cfg.device_topology and not abayes_on)
-        if parallelize:
-            new_root, improvement = _parallel_update(
-                run, (strict, fails, threshold, placement_thresh),
-                abayes_on)
-        else:
-            new_root, improvement = start_topology_updates(
-                rt, run.root, strict, fails, threshold, placement_thresh,
-                check_each_spr=cfg.debugging, abayes_on=abayes_on,
-                network_output=cfg.networkOutput)
-        if new_root is not None:
-            run.root = new_root
-        run.timings["topology"] += _time.time() - start
-        print(f"LK improvement apparently brought: {improvement}")
-        rt.recalculate_all(run.root)
-        post_lk = rt.calculate_tree_likelihood(run.root)
-        print(f"Likelihood after SPR moves: {post_lk}")
-        run.write_tree(f"_round{n_round + 1}_preliminary_tree.tree")
-
-        # subrounds on nodes affected by changes
-        start = _time.time()
-        sub_round = 0
-        while sub_round < 20:
-            print(f"Topological subround {sub_round + 1}", flush=True)
-            if parallelize:
-                if rt.native_session is not None:
-                    num_dirty, num_nodes = rt.native_session.count_dirty()
-                else:
-                    from ..runtime.tree import count_dirty_nodes
-                    num_dirty, num_nodes = count_dirty_nodes(tree, run.root)
-            if parallelize and num_dirty > 0.1 * num_nodes:
-                new_root, improvement = _parallel_update(
-                    run, (strict, fails, threshold, placement_thresh),
-                    abayes_on)
-            else:
-                new_root, improvement = start_topology_updates(
-                    rt, run.root, strict, fails, threshold,
-                    placement_thresh, check_each_spr=cfg.debugging,
-                    abayes_on=abayes_on,
-                    network_output=cfg.networkOutput)
-            if new_root is not None:
-                run.root = new_root
-            print(f"LK improvement apparently brought: {improvement}",
-                  flush=True)
-            if not cfg.noSubroundTrees:
-                run.write_tree(f"_round{n_round + 1}_subround"
-                               f"{sub_round + 1}_preliminary_tree.tree")
-            if improvement < cfg.thresholdLogLKTopologySubRoundImprovement:
-                break
-            sub_round += 1
-        rt.recalculate_all(run.root)
-        post_lk = rt.calculate_tree_likelihood(run.root)
-        print(f"Likelihood after SPR subrounds: {post_lk}", flush=True)
-        run.timings["topology"] += _time.time() - start
-
-        # EM + branch lengths after this round (reference :12397-12478)
-        lk = rt.calculate_tree_likelihood(run.root)
-        print(f"Initial LK before EM: {lk}", flush=True)
-        run.run_em_step(rates_update="rounds")
-        rt.recalculate_all(run.root)
-        lk = rt.calculate_tree_likelihood(run.root)
-        print(f"LK after one round of EM: {lk}")
-        if cfg.estimateErrorRate or cfg.estimateSiteSpecificErrorRate:
-            old_lk = float("-inf")
-            num_steps = 0
-            while lk - old_lk > 1.0 and num_steps < 20:
-                if not cfg.doNotOptimiseBLengths:
-                    from .blen import optimize_branch_lengths
-                    run._set_all_dirty(run.root)
-                    optimize_branch_lengths(rt, run.root)
-                    rt.recalculate_all(run.root)
-                run.run_em_step(rates_update="using")
                 rt.recalculate_all(run.root)
-                old_lk = lk
                 lk = rt.calculate_tree_likelihood(run.root)
-                num_steps += 1
-        if not cfg.doNotOptimiseBLengths:
-            from .blen import optimize_branch_lengths
-            rt.recalculate_all(run.root)
-            run._set_all_dirty(run.root)
-            improvement = optimize_branch_lengths(rt, run.root)
-            sub_round = 0
-            while sub_round < 20 and improvement:
-                sub_round += 1
-                improvement = optimize_branch_lengths(rt, run.root)
-            rt.recalculate_all(run.root)
-            lk = rt.calculate_tree_likelihood(run.root)
-            print(f"branch length finalization final LK: {lk}")
+                print(f"branch length finalization final LK: {lk}")
 
-        # EM round for the time-scaled mutation rate (reference
-        # :12462-12480: unconditional first update, then continue while
-        # the time LK improves by >0.1, max 20 steps)
-        if rt.do_time_tree:
-            run.run_time_em(f"SPR round {n_round + 1}")
+            # EM round for the time-scaled mutation rate (reference
+            # :12462-12480: unconditional first update, then continue while
+            # the time LK improves by >0.1, max 20 steps)
+            if rt.do_time_tree:
+                run.run_time_em(f"SPR round {n_round + 1}")
 
-        suffix = f"_round{n_round + 1}" if n_round < len(rounds) - 1 else ""
-        run.write_outputs(suffix, from_rounds=True)
+            suffix = f"_round{n_round + 1}" \
+                if n_round < len(rounds) - 1 else ""
+            run.write_outputs(suffix, from_rounds=True)

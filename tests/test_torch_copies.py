@@ -41,7 +41,11 @@ MANIFEST = {
     "core/kernels.py": ALL,
     "runtime/__init__.py": ALL,
     "runtime/tree.py": ALL,
-    "runtime/partials.py": ALL,
+    # the runtime records its phases into the run's tracer
+    # (runtime/phases.py); phase_times is a view of its spans
+    "runtime/partials.py": dict(
+        changed=["TreeRuntime.__init__", "TreeRuntime.add_phase_time"],
+        added=[]),
     "search/placement.py": ALL,
     "search/blen.py": ALL,
     "search/rootsearch.py": ALL,
@@ -61,15 +65,21 @@ MANIFEST = {
     "ops/pack.py": ALL,
     # the run takes a device; --devicePlacement's branches are the port's
     # (build_initial_tree_device: the proxy placer over a mesh on the
-    # mesh's device, the other branches take the legacy placer there)
+    # mesh's device, the other branches take the legacy placer there);
+    # the run owns a tracer (runtime/phases.py) that its stages record
+    # their spans into, closed when run() returns
     "pipeline.py": dict(
         changed=["Run.__init__", "Run._build_initial_tree_engine_device",
-                 "Run.build_initial_tree_device", "run_inference"],
-        added=[]),
+                 "Run.build_initial_tree_device", "run_inference",
+                 "Run.load", "Run.build_initial_tree", "Run.post_placement",
+                 "Run.write_tree", "Run.setup_input_tree", "Run.run",
+                 "Run.write_outputs"],
+        added=["Run._stages"]),
     # main: the program's name, the CUDA check, the device
     "cli.py": dict(changed=["main"], added=["_FLAG_FIELDS"]),
-    # the device SPR screen runs on run.device
-    "search/spr.py": dict(changed=["_parallel_update"], added=[]),
+    # the device SPR screen runs on run.device; the rounds record spans
+    "search/spr.py": dict(changed=["_parallel_update",
+                                   "_run_spr_rounds_body"], added=[]),
     # the port's own library in _build/, built under a lock and renamed
     "native/bridge.py": dict(changed=["_LIB", "_build", "_load"],
                              added=["_stale"]),

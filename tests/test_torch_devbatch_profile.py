@@ -2,11 +2,14 @@
 against maple_tpu's, on example_sub80 and on 600 synthetic samples.
 
 With the variable set, each package's placer runs on the same input: the
-proxy placer's changed and dedup-skipped export counts are equal (the same
-tree trajectory exports the same rows), and the pipelined and legacy
-placers record the same stage keys.  The port's placement is the same with
-and without the variable (LK and minors), and without it nothing is
-recorded.  Each side builds its tree with its own package.
+port's proxy placer counts in its run's tracer (``runtime/phases.py``) the
+changed and dedup-skipped rows that maple_tpu's placer counts in
+``_n_changed`` and ``_n_skipped`` (the same tree trajectory exports the
+same rows), and records its stages as spans on the threads that run them;
+the pipelined and legacy placers record the same stage keys.  The port's
+placement is the same with and without the variable (LK, minors and
+counts), and without it the tracer keeps no timeline and the rt-based
+placers no ``_prof``.  Each side builds its tree with its own package.
 """
 import pytest
 
@@ -20,8 +23,20 @@ from test_torch_proxy_placer import SUB80, make_run, placement_lk
 PROFILE = "MAPLE_DEBUG_DEVBATCH"
 BRANCH_ENV = ("MAPLE_DEVICE_RT", "MAPLE_DEVICE_LEGACY", "MAPLE_PROXY_BF16",
               "MAPLE_PROXY_D", "MAPLE_SPR_EXACT")
-PROXY_STAGES = ("_t_feat", "_t_upload", "_t_dispatch", "_t_block")
-PROXY_COUNTS = ("_n_changed", "_n_skipped")
+# the port's proxy spans -> the thread that records them (name prefix)
+PROXY_SPANS = {"place.pool_init": "place.init", "proxy.sync": "proxy.sync",
+               "prep.batch": "proxy.prep",
+               "proxy.query_export": "proxy.screen",
+               "proxy.upload": "proxy.screen",
+               "proxy.dispatch": "proxy.screen",
+               "proxy.fetch": "proxy.screen",
+               "place.wait.screen": "MainThread",
+               "place.wait.prep": "MainThread",
+               "place.wait.sync": "MainThread",
+               "place.seeded": "MainThread", "place.serial": "MainThread"}
+# the port's counters -> maple_tpu's attributes
+PROXY_COUNTS = {"proxy.rows_changed": "_n_changed",
+                "proxy.rows_skipped": "_n_skipped"}
 PIPELINED_KEYS = {"export_queries", "pool_sync", "pack_queries", "dispatch",
                   "block", "host"}
 LEGACY_KEYS = {"sync_pool", "model_warm", "score_readback", "mask",
@@ -88,27 +103,41 @@ def test_proxy_profile_matches_maple_tpu(tmp_path, monkeypatch, capsys,
                                          inputs, which):
     path = inputs[which]
     run0, lk0 = proxy_run("maple_tpu_torch", tmp_path, path, which)
-    pl0 = run0.proxy_placer
-    assert not pl0._prof
-    assert not any(hasattr(pl0, k) for k in PROXY_STAGES + PROXY_COUNTS)
+    tr0 = run0.tracer
+    assert not tr0.traced and tr0.timeline() == []
     monkeypatch.setenv(PROFILE, "1")
     capsys.readouterr()
     run, lk = proxy_run("maple_tpu_torch", tmp_path, path, which)
     out = capsys.readouterr().out
     jax_run, _ = proxy_run("maple_tpu", tmp_path, path, which)
-    pl, jpl = run.proxy_placer, jax_run.proxy_placer
-    assert pl._prof and jpl._prof
+    pl, jpl, tr = run.proxy_placer, jax_run.proxy_placer, run.tracer
+    assert tr.traced and jpl._prof
     assert lk == lk0
     assert run.stats.num_minors_found == run0.stats.num_minors_found
-    for k in PROXY_COUNTS:
-        assert getattr(pl, k) == getattr(jpl, k), k
-    assert pl._n_changed > 0
-    for k in PROXY_STAGES:
-        assert getattr(pl, k) >= 0.0, k
+    for name, twin in PROXY_COUNTS.items():
+        assert tr.counter(name) == getattr(jpl, twin) \
+            == tr0.counter(name), name
+    assert tr.counter("proxy.rows_changed") > 0
+    threads = {}
+    for name, thread, count, incl, excl in tr.rows():
+        threads.setdefault(name, set()).add(thread)
+        assert count > 0 and 0.0 <= excl <= incl, name
+    kept = {name for name, *_ in tr.timeline()}
+    for name, thread in PROXY_SPANS.items():
+        assert any(t.startswith(thread) for t in threads[name]), \
+            (name, threads.get(name))
+        assert name in kept, name
+    # the placer's counters are read from its spans
+    assert pl.time_wait == pytest.approx(tr.inclusive("place.wait.screen"))
+    assert pl.time_place == pytest.approx(tr.inclusive("place.seeded"))
+    assert pl.time_screen == pytest.approx(
+        tr.inclusive("proxy.upload") + tr.inclusive("proxy.dispatch")
+        + tr.inclusive("proxy.fetch"))
     assert out.count("[proxy] nf query p50=") == 1
     assert pl.stage_split().startswith("[upload ")
-    assert pl.stage_split().endswith(f" rows {pl._n_changed} skip "
-                                     f"{pl._n_skipped}]")
+    assert pl.stage_split().endswith(
+        f" rows {tr.counter('proxy.rows_changed')} skip "
+        f"{tr.counter('proxy.rows_skipped')}]")
 
 
 @pytest.mark.parametrize("which", sorted(INPUTS))

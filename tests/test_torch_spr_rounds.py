@@ -10,7 +10,11 @@ The rounds loop and ``Run.run`` are copies of maple_tpu's; of
 ``_parallel_update`` only the device branch differs (the port's screen on
 ``run.device``).  Their syntax trees are held against maple_tpu's (with
 the whole modules, in test_torch_copies.py), so that a change to either
-side fails here instead of drifting apart.
+side fails here instead of drifting apart.  The port's spans
+(``runtime/phases.py``) are taken out first: its ``with ... .span(...)``
+blocks stand for their bodies, and ``Run.run``'s stages are its
+``Run._stages`` (the run's tracer around them, the end-of-run breakdown
+read from the tracer).
 """
 import ast
 
@@ -30,6 +34,53 @@ from test_torch_pipeline import LK_TOL, SUB80, read_lk
 CPU = torch.device("cpu")
 
 
+def _is_span(item: ast.withitem) -> bool:
+    call = item.context_expr
+    return isinstance(call, ast.Call) \
+        and isinstance(call.func, ast.Attribute) and call.func.attr == "span"
+
+
+def untraced(node):
+    """``node`` with the port's tracer taken out: each ``with`` block of
+    spans replaced by its body, ``tracer = ...`` dropped."""
+    for field in ("body", "orelse", "finalbody"):
+        stmts = getattr(node, field, None)
+        if not isinstance(stmts, list):
+            continue
+        out, todo = [], list(stmts)
+        while todo:
+            stmt = todo.pop(0)
+            if isinstance(stmt, ast.With) and all(map(_is_span,
+                                                      stmt.items)):
+                todo[:0] = stmt.body
+            elif not (isinstance(stmt, ast.Assign)
+                      and ast.unparse(stmt.targets[0]) == "tracer"):
+                out.append(stmt)
+        setattr(node, field, out)
+    for child in ast.iter_child_nodes(node):
+        untraced(child)
+    return node
+
+
+def stages_of_run(port_t, ref_t):
+    """The bodies of maple_tpu's ``Run.run`` and of the port's
+    ``Run._stages``, without docstrings: the port returns True or False
+    where maple_tpu returns or ends, and maple_tpu's end-of-run phase
+    breakdown (the port prints it from the tracer) is left out."""
+    port_b, ref_b = port_t.body[1:], ref_t.body[1:]
+    assert ast.unparse(port_b[-1]) == "return True"
+    port_b = port_b[:-1]
+    assert ast.unparse(ref_b[-2]) == "phases = self.rt.phase_times"
+    ref_b = ref_b[:-2]
+    for node in ast.walk(ast.Module(body=port_b, type_ignores=[])):
+        if isinstance(node, ast.Return) and isinstance(node.value,
+                                                       ast.Constant):
+            assert node.value.value is False
+            node.value = None
+    return (ast.Module(body=port_b, type_ignores=[]),
+            ast.Module(body=ref_b, type_ignores=[]))
+
+
 def _device_branch(fn: ast.FunctionDef) -> ast.If:
     (branch,) = [n for n in fn.body if isinstance(n, ast.If)
                  and "device_topology" in ast.unparse(n.test)]
@@ -45,7 +96,10 @@ def _device_branch(fn: ast.FunctionDef) -> ast.If:
         "Run.run"])
 def test_copied_host_code_matches_maple_tpu(rel, name):
     ref_t = named(parse("maple_tpu", rel))[name]
-    port_t = named(parse("maple_tpu_torch", rel))[name]
+    port_t = untraced(named(parse("maple_tpu_torch", rel))[
+        "Run._stages" if name == "Run.run" else name])
+    if name == "Run.run":
+        port_t, ref_t = stages_of_run(port_t, ref_t)
     if name == "_parallel_update":
         # the one swapped call: the port's screen on run.device
         ref_b, port_b = _device_branch(ref_t), _device_branch(port_t)
