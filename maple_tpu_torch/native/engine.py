@@ -475,96 +475,25 @@ def run_native_spr_pass(rt, root, strict_stop, allowed_fails,
     if ses is not None:
         return ses.spr_pass(strict_stop, allowed_fails, threshold_log_lk,
                             threshold_topology_placement)
-    store = rt.kern.store
-    lib = store.lib
-    tree = rt.tree
-    n = len(tree.up)
-    store.sync_model(rt.model)
-
-    i32, i64, f64, u8 = np.int32, np.int64, np.float64, np.uint8
-    up = np.asarray([u if u is not None else -1 for u in tree.up], i32)
-    c0 = np.empty(n, i32)
-    c1 = np.empty(n, i32)
-    for i, ch in enumerate(tree.children):
-        if ch:
-            c0[i], c1[i] = ch[0], ch[1]
-        else:
-            c0[i] = c1[i] = -1
-    dist = np.asarray([float(d) if d else 0.0 for d in tree.dist], f64)
-    ndesc = np.asarray(tree.nDesc, i32)
-    dirty = np.asarray([1 if d else 0 for d in tree.dirty], u8)
-    repl = np.asarray(tree.replacements, i32)
-    seen = set()
-
-    def vids(arr):
-        out = np.empty(n, i64)
-        for i, v in enumerate(arr):
-            if v is None:
-                out[i] = -1
-            else:
-                if v.vid in seen:
-                    return None  # aliased handle: unsafe to transfer
-                seen.add(v.vid)
-                out[i] = v.vid
-        return out
-
-    pv = vids(tree.probVect)
-    upr = vids(tree.probVectUpRight)
-    upl = vids(tree.probVectUpLeft)
-    totup = vids(tree.probVectTotUp)
-    if pv is None or upr is None or upl is None or totup is None:
+    lib = rt.kern.store.lib
+    h = _import_engine(rt, root, transfer=True)
+    if h is None:
         return None
-    minor_counts = np.asarray([len(m) for m in tree.minorSequences], i32)
-    n_muts = np.asarray([len(m) for m in tree.mutations], i32)
-    flat = []
-    for m in tree.mutations:
-        for t in m:
-            flat.extend(t)
-    muts_flat = np.asarray(flat if flat else [0], i32)
-
-    # ownership transfers to the engine now
-    for arr in (tree.probVect, tree.probVectUpRight, tree.probVectUpLeft,
-                tree.probVectTotUp):
-        for v in arr:
-            if v is not None:
-                v.disarm()
-
-    def P(a, t):
-        return a.ctypes.data_as(C.POINTER(t))
-
     dc = rt.dc
-    # full threshold set (notably thresholdLogLKconsecutivePlacement: the
-    # SPR crawl's failed-pass gate reads E->threshold_consec — a 0 here
-    # stops crawls early and silently changes search results; observed as
-    # proposal divergence on --HnZ 2 --numCores 3)
-    h = C.c_void_p(lib.engine_create(
-        store.h, -1, 0,
-        0 if rt.cfg.nonStrictStopRules else 1, rt.cfg.allowedFails,
-        dc.thresholdLogLK, dc.thresholdLogLKoptimization,
-        dc.thresholdLogLKconsecutivePlacement, dc.oneMutBLen,
-        dc.effectivelyNon0BLen, 0, 1 if rt.use_local_reference else 0,
-        rt.cfg.maxNumDescendantsForMATClade, rt.cfg.minNumNon4))
-    lib.engine_import(h, n, P(up, C.c_int32), P(c0, C.c_int32),
-                      P(c1, C.c_int32), P(dist, C.c_double),
-                      P(ndesc, C.c_int32), P(dirty, C.c_uint8),
-                      P(repl, C.c_int32), P(pv, C.c_int64),
-                      P(upr, C.c_int64), P(upl, C.c_int64),
-                      P(totup, C.c_int64), P(minor_counts, C.c_int32),
-                      P(n_muts, C.c_int32), P(muts_flat, C.c_int32), root)
-    if tree.use_hnz:
-        lib.engine_set_hnz(h, rt.cfg.HnZ)
-        nd0 = np.asarray(tree.nDesc0, i32)
-        lib.engine_import_ndesc0(h, P(nd0, C.c_int32))
     lib.engine_set_spr_params(
         h, dc.thresholdLogLKoptimizationTopology,
         threshold_topology_placement, rt.cfg.defaultBLen,
         rt.cfg.maxReplacements)
     if rt.cfg.topologyBudget:
         lib.engine_set_spr_budget(h, rt.cfg.topologyBudget)
-    new_root = np.zeros(1, i32)
-    improvement = np.zeros(1, f64)
+    new_root = np.zeros(1, np.int32)
+    improvement = np.zeros(1, np.float64)
     topo = np.zeros(1, np.int64)
     blen = np.zeros(1, np.int64)
+
+    def P(a, t):
+        return a.ctypes.data_as(C.POINTER(t))
+
     rc = lib.engine_spr_pass(h, 1 if strict_stop else 0, allowed_fails,
                              threshold_log_lk, P(new_root, C.c_int32),
                              P(improvement, C.c_double),
@@ -574,61 +503,9 @@ def run_native_spr_pass(rt, root, strict_stop, allowed_fails,
         msg = lib.engine_error(h).decode()
         lib.engine_free(h)
         raise RuntimeError(f"native SPR engine: {msg}")
-
-    # export the (same-size) tree back
-    e_up = np.empty(n, i32)
-    e_c0 = np.empty(n, i32)
-    e_c1 = np.empty(n, i32)
-    e_dist = np.empty(n, f64)
-    e_name = np.empty(n, i32)
-    e_nd = np.empty(n, i32)
-    e_dirty = np.empty(n, u8)
-    e_pv = np.empty(n, i64)
-    e_upr = np.empty(n, i64)
-    e_upl = np.empty(n, i64)
-    e_tot = np.empty(n, i64)
-    e_minor = np.empty(n, i32)
-    e_nm = np.empty(n, i32)
-    lib.engine_export_nodes(
-        h, P(e_up, C.c_int32), P(e_c0, C.c_int32), P(e_c1, C.c_int32),
-        P(e_dist, C.c_double), P(e_name, C.c_int32), P(e_nd, C.c_int32),
-        P(e_dirty, C.c_uint8), P(e_pv, C.c_int64), P(e_upr, C.c_int64),
-        P(e_upl, C.c_int64), P(e_tot, C.c_int64), P(e_minor, C.c_int32),
-        P(e_nm, C.c_int32))
-    e_repl = np.empty(n, i32)
-    lib.engine_export_replacements(h, P(e_repl, C.c_int32))
-    tree.up = [u if u >= 0 else None for u in e_up.tolist()]
-    tree.children = [[] if a < 0 else [a, b]
-                     for a, b in zip(e_c0.tolist(), e_c1.tolist())]
-    tree.dist = e_dist.tolist()
-    tree.nDesc = e_nd.tolist()
-    tree.dirty = [bool(x) for x in e_dirty.tolist()]
-    tree.replacements = e_repl.tolist()
-    if tree.use_hnz:
-        e_nd0 = np.empty(n, i32)
-        lib.engine_export_ndesc0(h, P(e_nd0, C.c_int32))
-        tree.nDesc0 = e_nd0.tolist()
-    for node in range(n):
-        cnt = int(e_nm[node])
-        if cnt != len(tree.mutations[node]):
-            pass
-        if cnt:
-            buf = np.empty(cnt * 3, i32)
-            lib.engine_export_muts(h, node, P(buf, C.c_int32))
-            flat2 = buf.tolist()
-            tree.mutations[node] = [tuple(flat2[k:k + 3])
-                                    for k in range(0, len(flat2), 3)]
-        else:
-            tree.mutations[node] = []
-
-    def wrap(arr):
-        return [NV(store, int(v)) if v >= 0 else None for v in arr]
-
-    tree.probVect = wrap(e_pv)
-    tree.probVectUpRight = wrap(e_upr)
-    tree.probVectUpLeft = wrap(e_upl)
-    tree.probVectTotUp = wrap(e_tot)
-    sbuf = np.zeros(9, f64)
+    # a pass that moved nothing left every vector as it was
+    _export_engine(rt, h, mutated=bool(topo[0] or blen[0]), mat=True)
+    sbuf = np.zeros(9, np.float64)
     lib.engine_stats(h, P(sbuf, C.c_double))
     rt.num_refs += int(sbuf[6])
     nr = int(new_root[0])
@@ -703,38 +580,7 @@ def run_native_spr_parallel(rt, root, num_cores, strict_stop, allowed_fails,
         print(f"Searched {int(searched[c])} nodes within core {c} and "
               f"found {int(proposed[c])} proposed SPR moves")
     print("Found proposed SPR moves, merged, and sorted.")
-    _export_engine(rt, h)
-    tree = rt.tree
-    n = len(tree.up)
-    e_repl = np.empty(n, np.int32)
-    lib.engine_export_replacements(h, P(e_repl, C.c_int32))
-    tree.replacements = e_repl.tolist()
-    e_nm = np.empty(n, np.int32)
-    e_minor = np.empty(n, np.int32)
-    # _export_engine refreshed topology/vectors; mutations may have moved
-    # during applies (MAT relocation), so refresh them too
-    scratch = np.empty(n, np.int32)
-    scratch8 = np.empty(n, np.uint8)
-    scratch64 = np.empty(n, np.int64)
-    e_dist = np.empty(n, np.float64)
-    lib.engine_export_nodes(
-        h, P(scratch, C.c_int32), P(scratch, C.c_int32),
-        P(scratch, C.c_int32), P(e_dist, C.c_double),
-        P(scratch, C.c_int32), P(scratch, C.c_int32),
-        P(scratch8, C.c_uint8), P(scratch64, C.c_int64),
-        P(scratch64, C.c_int64), P(scratch64, C.c_int64),
-        P(scratch64, C.c_int64), P(e_minor, C.c_int32),
-        P(e_nm, C.c_int32))
-    for node in range(n):
-        cnt = int(e_nm[node])
-        if cnt:
-            buf = np.empty(cnt * 3, np.int32)
-            lib.engine_export_muts(h, node, P(buf, C.c_int32))
-            flat = buf.tolist()
-            tree.mutations[node] = [tuple(flat[k:k + 3])
-                                    for k in range(0, len(flat), 3)]
-        else:
-            tree.mutations[node] = []
+    _export_engine(rt, h, mat=True)
     sbuf = np.zeros(9, np.float64)
     lib.engine_stats(h, P(sbuf, C.c_double))
     rt.num_refs += int(sbuf[6])
@@ -786,6 +632,7 @@ def _import_engine(rt, root, transfer):
     totup = vids(tree.probVectTotUp)
     if pv is None or upr is None or upl is None or totup is None:
         return None
+    rt.tracer.count("engine.transfers")
     minor_counts = np.asarray([len(m) for m in tree.minorSequences], i32)
     n_muts = np.asarray([len(m) for m in tree.mutations], i32)
     flat = []
@@ -829,10 +676,17 @@ def _import_engine(rt, root, transfer):
     return h
 
 
-def _export_engine(rt, h, raise_on=None):
+def _export_engine(rt, h, raise_on=None, mutated=True, mat=False):
     """Write the engine's tree back into rt.tree, re-wrapping vector ids
-    (counterpart of the transfer-mode _import_engine)."""
-    rt.mark_mutated()  # every mutating one-shot engine phase exports here
+    (counterpart of the transfer-mode _import_engine): topology, lengths,
+    dirty flags and vectors; with ``mat`` also the replacement counts and
+    local-reference mutation lists, which only SPR passes move (MAT
+    relocation).  ``mutated`` False where the export itself changes
+    nothing: a session handing its state back (its phases marked their
+    own changes), or an SPR pass that moved nothing."""
+    if mutated:
+        rt.mark_mutated()  # every mutating one-shot engine phase exports here
+    rt.tracer.count("engine.transfers")
     store = rt.kern.store
     lib = store.lib
     tree = rt.tree
@@ -879,6 +733,18 @@ def _export_engine(rt, h, raise_on=None):
         e_nd0 = np.empty(n, i32)
         lib.engine_export_ndesc0(h, P(e_nd0, C.c_int32))
         tree.nDesc0 = e_nd0.tolist()
+    if not mat:
+        return
+    e_repl = np.empty(n, i32)
+    lib.engine_export_replacements(h, P(e_repl, C.c_int32))
+    tree.replacements = e_repl.tolist()
+    tree.mutations = [[] for _ in range(n)]
+    for node in np.nonzero(e_nm)[0].tolist():
+        buf = np.empty(int(e_nm[node]) * 3, i32)
+        lib.engine_export_muts(h, node, P(buf, C.c_int32))
+        flat = buf.tolist()
+        tree.mutations[node] = [tuple(flat[k:k + 3])
+                                for k in range(0, len(flat), 3)]
 
 
 def native_phase_supported(rt) -> bool:
@@ -902,22 +768,53 @@ class NativeSession:
     are STALE; every consumer inside the session scope must either be
     routed through the session (the phase helpers check
     ``rt.native_session`` first) or read only topology refreshed via
-    :meth:`sync_topology` (the newick writers).  Scopes are opened only
-    for configurations where that holds — see
-    ``pipeline.Run._native_session_eligible``.
+    :meth:`sync_topology` (the newick writers), or suspend the session
+    around itself (:meth:`suspend` / :meth:`resume`: the device SPR pass,
+    ``parallel/batch_spr.py``).  Scopes are opened only for configurations
+    where that holds — see ``pipeline.Run._native_session_eligible``.
     """
 
     def __init__(self, rt, root):
         self.rt = rt
-        self.h = _import_engine(rt, root, transfer=True)
-        self.lib = rt.kern.store.lib if self.h is not None else None
+        self.lib = None
         self._last_root = root
-        if self.h is not None and rt.cfg.topologyBudget:
+        if self._attach(root):
+            rt.tracer.count("engine.sessions")
+
+    def _attach(self, root) -> bool:
+        """Import the tree (transfer mode) into a new engine with the
+        run's SPR/root budgets and threads; False, with no engine, where
+        an aliased vector handle makes the transfer unsafe."""
+        rt = self.rt
+        self.h = _import_engine(rt, root, transfer=True)
+        if self.h is None:
+            return False
+        self.lib = rt.kern.store.lib
+        if rt.cfg.topologyBudget:
             self.lib.engine_set_spr_budget(self.h, rt.cfg.topologyBudget)
-        if self.h is not None and rt.cfg.rootSearchBudget:
+        if rt.cfg.rootSearchBudget:
             self.lib.engine_set_root_budget(self.h, rt.cfg.rootSearchBudget)
-        if self.h is not None and rt.cfg.numCores > 1:
+        if rt.cfg.numCores > 1:
             self.lib.engine_set_threads(self.h, rt.cfg.numCores)
+        return True
+
+    def suspend(self):
+        """Hand the resident state back to rt.tree and free the engine,
+        as :meth:`close` does, but keep the session for :meth:`resume`:
+        a python-side pass (the device SPR screen and its serial apply)
+        reads and changes the real host vectors in between."""
+        self.close()
+        self.rt.tracer.count("engine.suspends")
+
+    def resume(self, root) -> bool:
+        """Import the tree again into this session and make it the run's
+        live one.  False where the transfer is unsafe: the scope then goes
+        on one-shot, as if no session had been opened."""
+        if not self._attach(root):
+            return False
+        self._last_root = root
+        self.rt.native_session = self
+        return True
 
     # -- scalar phases -------------------------------------------------
     def _sync(self):
@@ -976,7 +873,6 @@ class NativeSession:
     def spr_pass(self, strict_stop, allowed_fails, threshold_log_lk,
                  threshold_topology_placement):
         self._sync()
-        self.rt.mark_mutated()
         rt = self.rt
         dc = rt.dc
         self.lib.engine_set_spr_params(
@@ -996,6 +892,9 @@ class NativeSession:
             blen.ctypes.data_as(C.POINTER(C.c_long)))
         if rc != 0:
             self._err("SPR pass")
+        if topo[0] or blen[0]:
+            # a pass that moved nothing left every vector as it was
+            rt.mark_mutated()
         nr = int(new_root[0])
         return (nr if nr >= 0 else None, float(improvement[0]),
                 int(topo[0]), int(blen[0]))
@@ -1053,8 +952,8 @@ class NativeSession:
 
     def root_search(self, strict_stop, allowed_fails, threshold_log_lk,
                     threshold_consecutive, threshold_opt):
+        # read-only, as the one-shot crawl that only borrows the vectors
         self._sync()
-        self.rt.mark_mutated()
         n = self.lib.engine_node_count(self.h)
         best_node = np.zeros(1, np.int32)
         best_lk = np.zeros(1, np.float64)
@@ -1121,7 +1020,7 @@ class NativeSession:
             return self._last_root
         rt = self.rt
         lib, h = self.lib, self.h
-        _export_engine(rt, h)
+        _export_engine(rt, h, mutated=False, mat=True)
         sbuf = np.zeros(9, np.float64)
         lib.engine_stats(h, sbuf.ctypes.data_as(C.POINTER(C.c_double)))
         rt.num_refs += int(sbuf[6])
@@ -1138,7 +1037,8 @@ def native_session_eligible(rt) -> bool:
     when every consumer in the scope is native-routed: no python-side
     vector readers (SPRTA / estimateMAT / estimateErrors annotations,
     traces, parallel-SPR forks, error-model tip refreshes, time trees,
-    debug checks)."""
+    debug checks).  The device SPR pass reads them too, and suspends the
+    session around itself."""
     cfg = rt.cfg
     error_model_requested = bool(
         cfg.errorRateSiteSpecificFile or cfg.errorRateFixed
@@ -1151,7 +1051,6 @@ def native_session_eligible(rt) -> bool:
             and not cfg.estimateMAT
             and not cfg.estimateErrors
             and not cfg.networkOutput
-            and not cfg.device_topology
             and not cfg.debugging
             and not cfg.deeperSearchForLongBranches
             and not cfg.doNotImproveTopology

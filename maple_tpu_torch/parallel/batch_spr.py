@@ -33,7 +33,9 @@ records into the tree runtime's tracer (``runtime/phases.py``) the span
 ``spr.pass`` with its children ``spr.collect``, ``spr.pack``,
 ``spr.decide`` and ``spr.apply`` (the ``ScreenPass`` seconds of the same
 names are theirs), and the counters ``spr.queries``, ``spr.proposals``
-and ``spr.applied`` (moves the serial apply made).
+and ``spr.applied`` (moves the serial apply made).  Inside a live engine
+session the pass also holds ``engine.suspend`` and ``engine.resume``
+(:func:`device_topology_update`).
 
 Reference crawl being replaced: findBestParentTopology
 MAPLEv0.7.5.4.py:6817-7724 with stop rules :8080-8088.
@@ -649,17 +651,37 @@ def device_topology_update(rt, root: int, params,
 
     SPRTA and network annotation need the crawl's per-candidate
     posteriors and stay on the host paths (the rounds loop gates
-    them)."""
+    them).
+
+    The pass reads and changes the host-side tree, so a live engine
+    session (``native/engine.py`` ``NativeSession``) is suspended before
+    it (span ``engine.suspend``: the resident tree comes back to
+    ``rt.tree``) and resumed after it on the pass's root (span
+    ``engine.resume``); a resume that cannot import leaves the scope
+    one-shot."""
     if counters is None:
         counters = SprCounters()
     with rt.tracer.span("spr.pass"):
-        if mesh is not None:
-            if query_chunk is None:
-                query_chunk = 64 if use_pallas else 16
-            dp = mesh.shape["dp"]
-            return _screen_mesh(rt, root, params, counters, time.time(),
-                                mesh=mesh,
-                                query_chunk=query_chunk + (-query_chunk) % dp)
-        return _screen_single_device(rt, root, params, counters,
-                                     time.time(),
-                                     device=torch.device(device))
+        ses = rt.native_session
+        if ses is not None:
+            with rt.tracer.span("engine.suspend"):
+                ses.suspend()
+        out = None
+        try:
+            if mesh is not None:
+                if query_chunk is None:
+                    query_chunk = 64 if use_pallas else 16
+                dp = mesh.shape["dp"]
+                out = _screen_mesh(
+                    rt, root, params, counters, time.time(), mesh=mesh,
+                    query_chunk=query_chunk + (-query_chunk) % dp)
+            else:
+                out = _screen_single_device(rt, root, params, counters,
+                                            time.time(),
+                                            device=torch.device(device))
+            return out
+        finally:
+            if ses is not None:
+                with rt.tracer.span("engine.resume"):
+                    ses.resume(root if out is None or out[0] is None
+                               else out[0])

@@ -61,7 +61,20 @@ MANIFEST = {
     "analysis/rf.py": ALL,
     "analysis/support_calibration.py": ALL,
     "native/__init__.py": ALL,
-    "native/engine.py": ALL,
+    # --deviceTopology runs keep one engine session a stage, suspended
+    # around each device SPR pass (suspend / resume); every export hands
+    # back the MAT (replacements, local-reference mutations); a session
+    # marks the tree mutated only where a phase changed it (not at close,
+    # not for the read-only root search, not for an SPR pass that moved
+    # nothing); the transfers count into the run's tracer
+    "native/engine.py": dict(
+        changed=["NativeSession.<body>", "NativeSession.__init__",
+                 "NativeSession.close", "NativeSession.root_search",
+                 "NativeSession.spr_pass", "_export_engine",
+                 "_import_engine", "native_session_eligible",
+                 "run_native_spr_parallel", "run_native_spr_pass"],
+        added=["NativeSession._attach", "NativeSession.resume",
+               "NativeSession.suspend"]),
     "ops/pack.py": ALL,
     # the run takes a device; --devicePlacement's branches are the port's
     # (build_initial_tree_device: the proxy placer over a mesh on the
