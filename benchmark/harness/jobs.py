@@ -6,8 +6,13 @@
 A kind gives ``warm`` (the set-up the cell's shapes need), ``run`` (one
 job in the window: its counters, and the port's objects its output is
 read from after the window) and ``output`` (the judged output, read after
-the window: the tree, the log-likelihood and the rate matrix that the port
+the window: the tree, the log-likelihood and the rates that the port
 reports).
+
+A job's ``MapleConfig`` takes the configuration's ``model`` and its
+``options`` (fields of the port's ``MapleConfig``, such as
+``estimateErrors``), and the traffic mix's ``flags``; a field that both
+the configuration and the mix set is an error.
 """
 from __future__ import annotations
 
@@ -17,12 +22,11 @@ import os
 import numpy as np
 import torch
 
+from ..reference.rates import read_subs
 from ..reference.tree import Tree, read_newick
 
 PLACER_FIELDS = ("steps", "time_place", "time_screen", "time_export",
                  "time_query_export", "time_device", "time_wait")
-SPLIT_FIELDS = ("_t_feat", "_t_upload", "_t_dispatch", "_t_block",
-                "_n_changed", "_n_skipped")
 PASS_FIELDS = ("queries", "anchors", "chunks", "proposals", "collect_s",
                "pack_s", "decide_s", "apply_s", "device_s")
 
@@ -34,8 +38,14 @@ def _sync(device):
 
 def config_for(cell, aln, out):
     from maple_tpu_torch.config import MapleConfig
+    options = cell.config.get("options", {})
+    flags = cell.traffic["flags"]
+    both = sorted(set(options) & set(flags))
+    if both:
+        raise ValueError(f"{cell.name}: the configuration's options and "
+                         f"the traffic's flags both set {', '.join(both)}")
     return MapleConfig(input=aln, output=out, model=cell.config["model"],
-                       overwrite=True, **cell.traffic["flags"])
+                       overwrite=True, **options, **flags)
 
 
 def _features(rng, rows, D, F):
@@ -124,8 +134,6 @@ def run_tree(cell, aln, device, out, spans, clock):
                                for p in batch_spr.stats.passes]}
     pl = run.proxy_placer
     counters.update({k: float(getattr(pl, k)) for k in PLACER_FIELDS})
-    counters.update({k: float(getattr(pl, k)) for k in SPLIT_FIELDS
-                     if hasattr(pl, k) and getattr(pl, "_prof", False)})
     run.proxy_placer = None
     batch_spr.stats.reset()
     return Job("tree", wall, None, counters, run, out)
@@ -148,15 +156,14 @@ def _tree_of(run):
 
 
 def output_tree(job):
-    """The written ``_LK.txt``, ``_subs.txt`` and ``_tree.tree``, and the
-    port's tree they describe."""
+    """The written ``_LK.txt``, ``_subs.txt`` (``reference.rates.Rates``)
+    and ``_tree.tree``, and the port's tree they describe."""
     run = job.run
     if run.rt.native_session is not None:
         run.rt.native_session.sync_topology()
     with open(job.out + "_LK.txt") as f:
         lk = float(f.read())
-    with open(job.out + "_subs.txt") as f:
-        rates = [[float(x) for x in f.readline().split()] for _ in range(4)]
+    rates = read_subs(job.out + "_subs.txt")
     with open(job.out + "_tree.tree") as f:
         written = read_newick(f.read())
     return _tree_of(run), lk, rates, written

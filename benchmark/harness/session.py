@@ -8,6 +8,7 @@ with the timed path broken underneath, to see ``correct`` come out false.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import gzip
 import os
@@ -89,8 +90,12 @@ def judge_outputs(outputs, aln, spec, log, readings=None):
     them failed a limit.  ``spec`` is the cell's limits file.  A list
     ``readings`` gets, for each output, the numbers and beside them the
     ``lk_gap`` of the float32 control (the reference in float32 put in the
-    port's place)."""
+    port's place) and, where the port wrote site error rates, of the tree
+    scored with them dropped (``errors_dropped_lk_gap``) and with each
+    multiplied by 10 (``errors_x10_lk_gap``); a tree that is impossible
+    under such rates (``likelihood.ZeroMerge``) reads inf."""
     from ..reference.judge import judge, reference_lk
+    from ..reference.likelihood import ZeroMerge
     data = datasets.judge_data(aln)
     limits = spec["limits"]
     worst = {}
@@ -105,6 +110,16 @@ def judge_outputs(outputs, aln, spec, log, readings=None):
         if readings is not None and res["reference_lk"] is not None:
             f32 = reference_lk(data, tree, rates, "float32")
             res["control_lk_gap"] = abs(f32 - res["reference_lk"])
+            eps = rates.site_error_rates
+            if eps is not None:
+                for name, bent in (("errors_dropped", None),
+                                   ("errors_x10", [10 * e for e in eps])):
+                    bad = dataclasses.replace(rates, site_error_rates=bent)
+                    try:
+                        res[name + "_lk_gap"] = abs(
+                            lk - reference_lk(data, tree, bad))
+                    except ZeroMerge:
+                        res[name + "_lk_gap"] = float("inf")
             res["lk"] = lk
             readings.append(res)
             print(f"# readings: {res}", file=log, flush=True)

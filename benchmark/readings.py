@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """The readings the limits of ``correct`` are set from, on the card: for
 each seed one window of the cell, and for each judged output its numbers
-(``names_bad``, ``lk_gap``, ``lk_short``) and the float32 control's
-``lk_gap`` (the reference in float32 put in the port's place).  One
-process for all seeds: the set-up it shares is paid once.  The faults'
-readings come from ``tests/test_bench_card.py``.  Not part of a benchmark
-run.
+(``names_bad``, ``lk_gap``, ``lk_short``), the float32 control's
+``lk_gap`` (the reference in float32 put in the port's place) and, where
+the port wrote site error rates, the ``lk_gap`` of the tree scored with
+them dropped and with each multiplied by 10
+(``session.judge_outputs``).  One process for all seeds: the set-up it
+shares is paid once.  The faults planted in the port read from
+``tests/test_bench_card.py``.  Not part of a benchmark run.
 
     python3 benchmark/readings.py --workload <cell> --seeds 1,2,3 \\
         [--seconds 1] [--out readings.jsonl]

@@ -5,10 +5,12 @@
   alignment has no such sample.  Limit 0.
 - ``lk_gap``: the distance between the log-likelihood that the program
   reports for its tree and the one that ``likelihood.tree_lk`` works out
-  again for the same tree, from the alignment and the rate matrix the
-  program reports.  It fails a likelihood computed in a lower precision
-  than the configuration's float64, and a tree whose leaves or branch
-  lengths are not the ones the program scored.
+  again for the same tree, from the alignment and the rates the program
+  reports (``rates.Rates``: the matrix, and the site error rates where the
+  run estimated them).  It fails a likelihood computed in a lower
+  precision than the configuration's float64, a tree whose leaves or
+  branch lengths are not the ones the program scored, and error rates
+  that are not the ones it scored with.
 - ``lk_short``: how far the reference's log-likelihood of the tree, under
   the program's rates, lies below ``lk_base``, the best that sound runs of
   the cell reach on its dataset.  It fails a tree whose SPR rounds or
@@ -23,6 +25,10 @@ from __future__ import annotations
 from collections import Counter
 
 from .likelihood import Arith, Model, tip_list, tree_lk
+
+
+class Unjudgeable(ValueError):
+    """Rates of a model that the reference does not compute."""
 
 
 class Dataset:
@@ -45,9 +51,20 @@ def names_bad(tree, samples):
 
 
 def reference_lk(data, tree, rates, dtype="float64"):
-    """``likelihood.tree_lk`` of ``tree`` in ``dtype``."""
-    model = Model(data.ref, rates, Arith(dtype))
-    tips = {leaf: tip_list(data.samples[tree.name[leaf]], model)
+    """``likelihood.tree_lk`` of ``tree`` in ``dtype`` under ``rates``
+    (``rates.Rates``); rates that carry site rates or one global error
+    rate raise ``Unjudgeable``, rather than be scored without them."""
+    if rates.site_rates is not None:
+        raise Unjudgeable("the rates carry site rates (--rateVariation); "
+                          "the reference has no rate variation")
+    if rates.error_rate is not None:
+        raise Unjudgeable("the rates carry one global error rate "
+                          "(--estimateErrorRate); the reference reads "
+                          "site error rates only")
+    model = Model(data.ref, rates.matrix, Arith(dtype),
+                  error_rates=rates.site_error_rates)
+    tips = {leaf: tip_list(data.samples[tree.name[leaf]], model,
+                           len(tree.minors[leaf]))
             for leaf in tree.leaves()}
     return tree_lk(model, tree, tips)
 

@@ -29,9 +29,43 @@ the root frequencies (the reference genome's composition).  A node of the
 mutation-annotated tree carries the mutations of its own local reference
 against its parent's frame; a list is expressed in its node's frame, and
 an R run there stands for that frame's nucleotides while its rate term
-still reads the global reference's diagonal, as MAPLE computes it.  No error
-model, no rate variation: the configurations that use this file state
-neither.
+still reads the global reference's diagonal, as MAPLE computes it.  No rate
+variation: the judge refuses rates that carry it.
+
+MAPLE's site-specific error model (``errors``, from the site error rates
+the program wrote; MAPLE's ``getPartialVec``, ``mergeVectors``,
+``findProbRoot``, ``updateErrorRates`` and ``probVectTerminalNode`` as
+SURVEY.md cites them).  A leaf observes a state through the emission
+``[1-e, e/3, e/3, e/3]`` with its site's own error rate e:
+
+- the model adds each site's rate ``e_i``, their cumulative sums, the
+  total ``-sum(e_i)`` and the cumulative log of
+  ``f(ref_i) (1 - 4/3 e_i) + e_i/3``;
+- a leaf stands for itself and its minor sequences; a tip is a leaf
+  without them.  A merge starts from the total once for each sample that a
+  leaf side stands for.  Where a side is missing (N), each tip side gets
+  the run's rates back, and a tip's entry that survives there carries a
+  mark (``from_tip``, a fifth field) up into its parent's list.  Where a
+  position is not the reference on both sides, each tip side gets ``e_i``
+  back, unless both carry the same nucleotide;
+- a tip side, and a marked entry, is observed through the emission: its
+  state is evolved from ``[1-e, e/3, e/3, e/3]``, not from a unit vector.
+  A marked entry of an inner list takes ``e_i`` off where both sides
+  carry the same nucleotide, and its run's rates off where it is an R run
+  merged with an extra length; at the root a marked R run reads the
+  cumulative log above, a marked nucleotide ``f(c) (1 - 4/3 e_i) + e_i/3``;
+- a tip's ambiguity code is the normalised pattern with ``e/3`` on the
+  states it excludes (``1/2 - e/3`` or ``1/3 - e/9`` on the others); a
+  leaf with minor sequences keeps the plain normalised pattern.
+
+One departure from MAPLE: each ambiguity entry gets its own site's rate
+and its own leaf's minor sequences.  MAPLE shares one list a code across
+every tip and refreshes it in place, so that every entry of a code ends
+with the rate of whichever was refreshed last, and the lists merged
+before a refresh keep the older values; the port does as MAPLE.  Where no
+list is shared (each code at most once) the two agree to rounding.  The
+constants are MAPLE's own (``1.33333``, ``0.333333`` and ``0.33333`` where
+4/3 and 1/3 are meant), kept so that the numbers agree.
 
 ``Arith(dtype)`` fixes the precision of every arithmetic result: float64
 is the reference; float32 is the control, the same arithmetic rounded to
@@ -79,9 +113,12 @@ class Arith:
 class Model:
     """The tables one likelihood needs: the reference genome's nucleotide
     indices, the rate matrix Q, the cumulative sums of Q's diagonal along
-    the reference, the cumulative base counts and the root frequencies."""
+    the reference, the cumulative base counts and the root frequencies;
+    with ``error_rates`` (one a site) the error model's tables
+    (``Errors``), else ``errors`` is None."""
 
-    def __init__(self, ref, rates, arith, threshold_prob=1e-8):
+    def __init__(self, ref, rates, arith, threshold_prob=1e-8,
+                 error_rates=None):
         r = arith.r
         self.arith = arith
         self.L = len(ref)
@@ -103,10 +140,42 @@ class Model:
         self.global_rate = r(-float(self.L))
         self.tp = threshold_prob
         self.tp4 = threshold_prob ** 4
+        self.errors = None if error_rates is None \
+            else Errors(error_rates, self)
 
 
-def tip_list(diffs, model):
-    """A sample's entry list from its (char, pos, length) differences."""
+class Errors:
+    """The error model's tables: each site's rate ``eps``, their cumulative
+    sums ``cum``, the total ``-sum(eps)`` and ``root_log``, the cumulative
+    log-probability of the reference's nucleotides at a root whose
+    observation may be an error."""
+
+    def __init__(self, rates, model):
+        r = model.arith.r
+        if len(rates) != model.L:
+            raise ValueError(f"{len(rates)} site error rates for a genome "
+                             f"of {model.L}")
+        self.eps = [r(x) for x in rates]
+        cum = [0.0]
+        root_log = [0.0]
+        for i, e in enumerate(self.eps):
+            cum.append(r(cum[-1] + e))
+            f = model.freqs[model.ref_idx[i]]
+            p = r(r(f * r(1.0 - r(1.33333 * e))) + r(0.333333 * e))
+            root_log.append(r(root_log[-1] + r(math.log(p))))
+        self.cum = cum
+        self.total = r(-cum[-1])
+        self.root_log = root_log
+
+
+def from_tip(e):
+    """Whether an entry carries a tip's error-prone observation."""
+    return len(e) > 4 and e[4]
+
+
+def tip_list(diffs, model, n_minor=0):
+    """A sample's entry list from its (char, pos, length) differences; a
+    leaf that stands for ``n_minor`` minor sequences besides its own."""
     L = model.L
     out = []
     pos = 1
@@ -123,12 +192,30 @@ def tip_list(diffs, model):
                 out.append((R, p, 0.0, None))
             else:
                 out.append((NUC[ch], ref_nuc, 0.0, None))
-        else:
+        elif model.errors is None:
             out.append((O, ref_nuc, 0.0, AMBIGUOUS[ch]))
+        else:
+            out.append((O, ref_nuc, 0.0,
+                        _ambiguity_errors(AMBIGUOUS[ch],
+                                          model.errors.eps[p - 1], n_minor,
+                                          model.arith.r)))
         pos = p + 1
     if pos <= L:
         out.append((R, L, 0.0, None))
     return out
+
+
+def _ambiguity_errors(code, eps, n_minor, r):
+    """An ambiguity code's normalised pattern under the error model: the
+    states it excludes get ``eps/3``, unless the leaf has minor
+    sequences."""
+    k = sum(1 for x in code if x)
+    if n_minor:
+        on, off = 1.0 / k, 0.0
+    else:
+        off = r(eps * 0.33333)
+        on = r(0.5 - off) if k == 2 else r(1.0 / 3 - r(eps / 9))
+    return tuple(on if x else off for x in code)
 
 
 class ZeroMerge(ArithmeticError):
@@ -171,14 +258,21 @@ def _collapse(vec, ref_nuc, tp, tp4):
     return O
 
 
-def merge(model, v1, t1, v2, t2):
+def merge(model, v1, t1, v2, t2, tips=(False, False), minors=(0, 0)):
     """Merge two children's lists across branches t1 and t2: (the parent's
-    list, the merge's log-likelihood)."""
+    list, the merge's log-likelihood).  Under the error model ``tips``
+    says which side is a tip (a leaf without minor sequences) and
+    ``minors`` how many minor sequences a leaf side stands for."""
     ar = model.arith
     r = ar.r
     Q, cum, L = model.Q, model.cum, model.L
+    err = model.errors
     t12 = r(t1 + t2)
     lk = r(t12 * model.global_rate)
+    if err is not None:
+        for k in (0, 1):
+            if tips[k] or minors[k]:
+                lk = r(lk + r(err.total * (1 + minors[k])))
     fac = 1.0
     out = []
     i1 = i2 = 0
@@ -191,39 +285,64 @@ def merge(model, v1, t1, v2, t2):
                 new = min(e1[1], e2[1])
                 out.append((N, new, 0.0, None))
             else:
-                e, t = (e2, t2) if c1 == N else (e1, t1)
+                k = 1 if c1 == N else 0
+                e, t = (e2, t2) if k else (e1, t1)
                 c = e[0]
-                if c == R:
-                    new = min(e1[1], e2[1])
-                    out.append((R, new, r(e[2] + t), None))
+                new = min(e1[1], e2[1]) if c == R else pos + 1
+                field = new if c == R else e[1]
+                if err is not None and c != O:
+                    out.append((c, field, r(e[2] + t), None,
+                                from_tip(e) or tips[k]))
                 else:
-                    new = pos + 1
-                    out.append((c, e[1], r(e[2] + t), e[3]))
+                    out.append((c, field, r(e[2] + t), e[3]))
             lk = r(lk + r(t12 * r(cum[pos] - cum[new])))
+            if err is not None:
+                ce = r(err.cum[new] - err.cum[pos])
+                for k in (0, 1):
+                    if tips[k]:
+                        lk = r(lk + ce)
         else:
             x1 = r(t1 + e1[2])
             x2 = r(t2 + e2[2])
+            # a side whose state is observed through the emission
+            f1 = err is not None and c1 != O and (from_tip(e1) or tips[0])
+            f2 = err is not None and c2 != O and (from_tip(e2) or tips[1])
+            inner = (f1 and not tips[0], f2 and not tips[1])
             both_ref = c1 == R and c2 == R
             new = min(e1[1], e2[1]) if both_ref else pos + 1
             if both_ref:
                 if x2 > t2 or x1 > t1:
                     extra = r(r(r(x2 - t2) + x1) - t1)
                     lk = r(lk + r(extra * r(cum[new] - cum[pos])))
+                    if inner[0] or inner[1]:
+                        ce = r(err.cum[pos] - err.cum[new])
+                        for k in (0, 1):
+                            if inner[k]:
+                                lk = r(lk + ce)
                 out.append((R, new, 0.0, None))
             else:
                 ref_nuc = e1[1] if c1 != R else e2[1]
                 lk = r(lk - r(Q[ref_nuc][ref_nuc] * t12))
+                eps = None if err is None else err.eps[pos]
+                if err is not None and (c1 != c2 or c1 == O):
+                    for k in (0, 1):
+                        if tips[k]:
+                            lk = r(lk + eps)
                 if c1 == c2 and c1 < R:
                     out.append((c1, e1[1], 0.0, None))
                     lk = r(lk + r(Q[c1][c1] * r(x1 + x2)))
-                elif not x1 and not x2 and c1 != O and c2 != O:
+                    for k in (0, 1):
+                        if inner[k]:
+                            lk = r(lk - eps)
+                elif not x1 and not x2 and c1 != O and c2 != O \
+                        and not f1 and not f2:
                     raise ZeroMerge(f"states {c1} and {c2} at distance 0 "
                                     f"at position {pos + 1}")
                 else:
                     s1 = ref_nuc if c1 == R else c1
                     s2 = ref_nuc if c2 == R else c2
-                    p1 = _side(s1, e1, x1, Q, r)
-                    p2 = _side(s2, e2, x2, Q, r)
+                    p1 = _side(s1, e1, x1, Q, r, eps if f1 else None)
+                    p2 = _side(s2, e2, x2, Q, r, eps if f2 else None)
                     prod = [r(p1[k] * p2[k]) for k in range(4)]
                     s = r(r(r(prod[0] + prod[1]) + prod[2]) + prod[3])
                     if not s:
@@ -254,10 +373,15 @@ def merge(model, v1, t1, v2, t2):
     return _shorten(out, model.tp), r(lk + r(math.log(fac)))
 
 
-def _side(state, e, x, Q, r):
-    """One child's 4-vector at a position, evolved over its length x."""
+def _side(state, e, x, Q, r, eps=None):
+    """One child's 4-vector at a position, evolved over its length x; with
+    ``eps`` a tip's observation, from the emission ``[1-e, e/3, ...]``."""
     if state == O:
         return _evolve_vec(e[3], x, Q, r) if x else list(e[3])
+    if eps is not None:
+        v = [r(eps * 0.33333)] * 4
+        v[state] = r(1.0 - eps)
+        return _evolve_vec(v, x, Q, r) if x else v
     if x:
         return _evolve_state(state, x, Q, r)
     v = [0.0, 0.0, 0.0, 0.0]
@@ -267,13 +391,14 @@ def _side(state, e, x, Q, r):
 
 def _shorten(vec, tp):
     """Join neighbouring R runs that both have no extra length, or whose
-    extra lengths agree within ``tp``; the joined run keeps the later
-    run's extra length."""
+    extra lengths agree within ``tp``, and that carry the same tip mark;
+    the joined run keeps the later run's extra length."""
     out = [vec[0]]
     for e in vec[1:]:
         prev = out[-1]
         if e[0] == R and prev[0] == R and (e[2] == 0) == (prev[2] == 0) \
-                and abs(e[2] - prev[2]) <= tp:
+                and abs(e[2] - prev[2]) <= tp \
+                and from_tip(e) == from_tip(prev):
             out[-1] = e
         else:
             out.append(e)
@@ -281,15 +406,26 @@ def _shorten(vec, tp):
 
 
 def root_lk(model, vec):
-    """Log-probability of the root's list under the root frequencies."""
+    """Log-probability of the root's list under the root frequencies;
+    under the error model a tip's entry reads its sites' error terms."""
     ar = model.arith
     r = ar.r
+    err = model.errors
     lk = 0.0
     fac = 1.0
     pos = 0
     for e in vec:
         c = e[0]
-        if c == R:
+        if err is not None and c < N and from_tip(e):
+            if c == R:
+                lk = r(lk + r(err.root_log[e[1]] - err.root_log[pos]))
+                pos = e[1]
+            else:
+                eps = err.eps[pos]
+                fac = r(fac * r(r(model.freqs[c] * r(1.0 - r(1.33333 * eps)))
+                                + r(0.33333 * eps)))
+                pos += 1
+        elif c == R:
             a, b = model.cum_bases[pos], model.cum_bases[e[1]]
             for k in range(4):
                 lk = r(lk + r(model.log_freqs[k] * (b[k] - a[k])))
@@ -317,7 +453,8 @@ def pass_through(vec, muts, up, L):
     """Re-express a list across a branch of the mutation-annotated tree:
     ``muts`` is the branch's sorted (pos, upper nucleotide, lower
     nucleotide) list; going down the lower node's nucleotides become the
-    local reference, going up the upper node's."""
+    local reference, going up the upper node's.  An entry keeps its extra
+    length, vector and tip mark."""
     out = []
     k = 0
     last = 0
@@ -332,10 +469,10 @@ def pass_through(vec, muts, up, L):
             while k < len(muts) and muts[k][0] <= e[1]:
                 mpos, upper, lower = muts[k]
                 if mpos > last + 1:
-                    out.append((R, mpos - 1, e[2], None))
+                    out.append((R, mpos - 1) + e[2:])
                 last = mpos
                 nuc, other = (lower, upper) if up else (upper, lower)
-                out.append((nuc, other, e[2], None))
+                out.append((nuc, other) + e[2:])
                 k += 1
             if last < e[1]:
                 last = e[1]
@@ -345,12 +482,10 @@ def pass_through(vec, muts, up, L):
             if k < len(muts) and muts[k][0] <= last:
                 other = muts[k][1] if up else muts[k][2]
                 k += 1
-                if c == O:
-                    out.append((O, other, e[2], e[3]))
-                elif c == other:
-                    out.append((R, last, e[2], None))
+                if c == other:
+                    out.append((R, last) + e[2:])
                 else:
-                    out.append((c, other, e[2], None))
+                    out.append((c, other) + e[2:])
             else:
                 out.append(e)
         if last == L:
@@ -363,7 +498,8 @@ def tree_lk(model, tree, tips):
     ``mutations``, see ``tree.Tree``) whose leaves hold the lists
     ``tips[node]`` in the global frame.  Each list is evaluated in its
     node's frame of the mutation-annotated tree, as MAPLE evaluates it:
-    merges in the parent's frame, the root in the global one."""
+    merges in the parent's frame, the root in the global one.  A leaf
+    stands for itself and its ``minors``: a tip is a leaf without them."""
     r = model.arith.r
     L = model.L
     children, dist, muts = tree.children, tree.dist, tree.mutations
@@ -386,7 +522,12 @@ def tree_lk(model, tree, tips):
             va = pass_through(va, muts[a], True, L)
         if muts[b]:
             vb = pass_through(vb, muts[b], True, L)
-        lower[node], lk = merge(model, va, r(dist[a]), vb, r(dist[b]))
+        minors = tuple(len(tree.minors[k]) if not children[k] else 0
+                       for k in kids)
+        is_tip = tuple(not children[k] and not m
+                       for k, m in zip(kids, minors))
+        lower[node], lk = merge(model, va, r(dist[a]), vb, r(dist[b]),
+                                is_tip, minors)
         total = r(total + lk)
     vec = lower.pop(tree.root)
     if muts[tree.root]:

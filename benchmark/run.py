@@ -92,12 +92,8 @@ def main(argv=None):
     print(f"# {cell.name} seed {args.seed} trace {args.trace}: "
           f"{power_limit()}", file=result_out, flush=True)
 
-    result, lines, records = run_cell(cell, args.seed, args.seconds,
-                                      bool(args.trace), device, T_START)
-    if args.trace:
-        split = [{k: v for k, v in job.items() if k.startswith("_")}
-                 for job in records.jobs]
-        print("# split " + json.dumps(split), file=result_out, flush=True)
+    result, lines, _ = run_cell(cell, args.seed, args.seconds,
+                                bool(args.trace), device, T_START)
     found = banned_modules()
     if found:
         print(f"loaded once the window closed: {', '.join(found)}: "

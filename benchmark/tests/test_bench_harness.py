@@ -2,6 +2,7 @@
 metric added as files are found with no edit, the readers work on
 recorded counters and a recorded trace, the roofline arithmetic, and the
 command loads neither JAX nor the JAX package."""
+import dataclasses
 import hashlib
 import json
 import os
@@ -10,6 +11,7 @@ import sys
 
 import pytest
 
+from benchmark.harness.jobs import config_for
 from benchmark.harness.session import Records
 from benchmark.harness.spec import Cell, peaks_for
 from benchmark.metrics.roofline import bound_s, work_counts
@@ -71,6 +73,45 @@ def test_a_cell_and_a_metric_added_as_files(tmp_path):
     assert c.reader("extra.jobs")(rec) == 3
     assert [m["name"] for m in c.end_to_end] == ["setup_s"]
     assert _digest(os.path.join(ROOT, "benchmark")) == before
+
+
+def test_the_configuration_reaches_the_port_as_it_did():
+    """A configuration without ``options`` gives the port the MapleConfig
+    that the model and the mix's flags alone gave it."""
+    from maple_tpu_torch.config import MapleConfig
+    for name in CELLS:
+        cell = Cell(name)
+        if "options" in cell.config:
+            continue
+        got = config_for(cell, "in.maple", "out")
+        want = MapleConfig(input="in.maple", output="out",
+                           model=cell.config["model"], overwrite=True,
+                           **cell.traffic["flags"])
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    unrest = Cell("b1429.tree-devspr")
+    assert "options" not in unrest.config
+    assert config_for(unrest, "in.maple", "out").estimateErrors is False
+
+
+def test_options_reach_the_port_and_may_not_clash(tmp_path):
+    config = {"name": "errest", "dataset": {"kind": "file",
+              "file": "data/b1429_3000.maple.gz"}, "model": "UNREST",
+              "options": {"estimateErrors": True}}
+    clash = dict(config, name="clash",
+                 options={"device_topology": False})
+    cells = [{"name": f"{c}.tree-devspr", "config": c,
+              "traffic": "tree-devspr", "chips": 1, "why": "test"}
+             for c in ("errest", "clash")]
+    limits = {"limits": {"names_bad": 0}}
+    root = make_root(tmp_path, configs=[("errest", config),
+                                        ("clash", clash)], cells=cells,
+                     limits=[(c["name"], limits) for c in cells])
+    cfg = config_for(Cell("errest.tree-devspr", root=root), "in", "out")
+    assert cfg.estimateErrors and cfg.estimateSiteSpecificErrorRate
+    assert cfg.device_placement and cfg.device_topology
+    assert cfg.model == "UNREST"
+    with pytest.raises(ValueError, match="device_topology"):
+        config_for(Cell("clash.tree-devspr", root=root), "in", "out")
 
 
 def _tree():
