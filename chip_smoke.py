@@ -35,9 +35,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   6. the SPR path: ``--devicePlacement --deviceTopology`` on b3000 with
      MAPLE_DEVICE_RT=1 and MAPLE_SPR_EXACT=1 (the pair kernel in placement
      and in the SPR rounds; SPR launches, counted apart, must be positive),
-     then ``--deviceTopology`` alone (host placement, the proxy screen);
-     the stage walls, the SPR device time and each pass's counts are
-     printed;
+     then ``--deviceTopology`` alone (host placement, the proxy screen)
+     twice: in the engine session (the top-128 re-scored on the card by
+     the pair kernel's gathered entry) and with the session off (re-scored
+     on the host); the two must end on the same LK (within 1e-6), and the
+     counters must put every re-score on its side; the stage walls, the
+     SPR device time, the counters and each pass's counts are printed,
+     and the gathered entry on the first re-score's own operands against
+     its plain version, with its times and bound (``[gathered]``);
   7. SPR pass parity: one pass of each screen on the serial placement of
      b3000 against maple_tpu's own pass (REF_SPR): the same query and
      anchor counts and proposals, post-pass LK within 1e-6; a proposal of
@@ -931,36 +936,86 @@ def first_round_params(run):
 def phase_spr_main_path(torch):
     """The CLI on b3000 with --deviceTopology: the exhaustive screen after
     device placement (the pair kernel in both stages), then the default
-    proxy screen after host placement.  Returns the pair kernel's launches
-    in each run (keyed by the run's flags), and the exhaustive run's split
-    by path; every count is of one run, reset just before it."""
+    proxy screen after host placement, both ways: in the engine session
+    (each query's top-128 re-scored on the card by the pair kernel's
+    gathered entry, one launch a pass) and on the host tree with the
+    session off (``native_session_eligible`` False: re-scored on the host).
+    The two proxy runs must end on the same LK; the counters must show
+    every re-score on the side it belongs to.  Returns the pair kernel's
+    launches in each run (keyed by the run's flags), and the exhaustive
+    run's split by path; every count is of one run, reset just before
+    it."""
+    from maple_tpu_torch.native import engine as NE
+    from maple_tpu_torch.ops import append_pairs as AP
     from maple_tpu_torch.parallel import batch_spr as BS
-    runs, by_path = {}, {}
-    for name, argv, exact in (
-            ("exact", ["--devicePlacement", "--deviceTopology"], True),
-            ("proxy", ["--deviceTopology"], False)):
+    runs, by_path, proxy_lk = {}, {}, {}
+    eligible, rescore = NE.native_session_eligible, BS.spr_rescore
+    first_rescore = []
+
+    def keep_first(P, Cflat, prm, mm, rf, ts, ti, n_anchors):
+        if not first_rescore:
+            rows = torch.where((ti < n_anchors) & torch.isfinite(ts), ti,
+                               torch.full_like(ti, -1))
+            first_rescore.append(tuple(a.clone() for a in (
+                P, Cflat, prm, mm, rf, rows.contiguous())))
+        return rescore(P, Cflat, prm, mm, rf, ts, ti, n_anchors)
+
+    for name, argv, exact, session in (
+            ("exact", ["--devicePlacement", "--deviceTopology"], True, True),
+            ("proxy", ["--deviceTopology"], False, True),
+            ("proxy, no session", ["--deviceTopology"], False, False)):
         env = {"MAPLE_DEVICE_RT": "1"}
         if exact:
             env["MAPLE_SPR_EXACT"] = "1"
         BS.stats.reset()
-        wall, n, lk, run = run_cli(torch, argv, **env)
+        AP.append_scores_gathered.launches = 0
+        if not session:
+            NE.native_session_eligible = lambda rt: False
+        BS.spr_rescore = keep_first
+        try:
+            wall, n, lk, run = run_cli(torch, argv, **env)
+        finally:
+            NE.native_session_eligible, BS.spr_rescore = eligible, rescore
+        gathered = AP.append_scores_gathered.launches
         passes = list(BS.stats.passes)
         spr = sum(p.kernel_launches for p in passes)
         check(passes, f"{name}: no device SPR screen ran")
-        check(all(p.branch == name for p in passes),
+        branch = "exact" if exact else "proxy"
+        check(all(p.branch == branch for p in passes),
               f"{name}: a pass took another screen")
+        tr = run.tracer
+        counters = {k: tr.counter(k) for k in (
+            "spr.native_passes", "spr.rescored_device", "spr.rescored_host",
+            "engine.suspends", "engine.transfers", "spr.queries",
+            "spr.proposals", "spr.applied")}
         if exact:
             check(spr > 0, "the SPR rounds launched no pair kernel")
             check(n - spr > 0, "device placement launched no pair kernel")
             by_path = {"placement": n - spr, "spr_exact": spr}
+            check(gathered == 0, f"{name}: {gathered} gathered launches")
         else:
             check(n == 0, f"the proxy run launched the pair kernel {n} times")
-        runs[run_label(argv, exact)] = n
+            rescored = BS.PROXY_TOPM * counters["spr.queries"]
+            side = "device" if session else "host"
+            other = "host" if session else "device"
+            check(counters[f"spr.rescored_{side}"] == rescored
+                  and counters[f"spr.rescored_{other}"] == 0,
+                  f"{name}: re-scores {counters}, want {rescored} on the "
+                  f"{side}")
+            check(counters["spr.native_passes"]
+                  == (len(passes) if session else 0)
+                  and gathered == counters["spr.native_passes"]
+                  and counters["engine.suspends"] == 0,
+                  f"{name}: {gathered} gathered launches, {counters}")
+            proxy_lk[session] = lk
+        label = run_label(argv, exact)
+        runs[label if session else f"{label} (no engine session)"] = n
         t = run.timings
         dev_s = sum(p.device_s for p in passes)
         print(f"[spr-main] {name} screen ({' '.join(argv)}): {wall:.2f} s "
               f"end to end, final LK {lk}; pair kernel launches: "
-              f"{n - spr} in placement, {spr} in SPR")
+              f"{n - spr} in placement, {spr} in SPR, {gathered} gathered; "
+              f"counters {json.dumps(counters)}")
         print(f"[spr-main] {name}: placement finding {t['finding']:.2f} s, "
               f"placing {t['placing']:.2f} s, topology {t['topology']:.2f} "
               f"s; SPR device time {dev_s:.4f} s "
@@ -973,7 +1028,54 @@ def phase_spr_main_path(torch):
                   f"proposals; host collect {p.collect_s:.3f} s, "
                   f"pack+queue {p.pack_s:.3f} s, decide {p.decide_s:.3f} s, "
                   f"apply {p.apply_s:.3f} s; device {p.device_s:.4f} s")
-    return runs, by_path
+    gap = abs(proxy_lk[True] - proxy_lk[False])
+    print(f"[spr-main] proxy in the session against on the host tree: LK "
+          f"{proxy_lk[True]} and {proxy_lk[False]}, gap {gap:.3e}")
+    check(gap <= 1e-6, f"the proxy runs' LKs differ by {gap}")
+    return runs, by_path, gathered_row(torch, first_rescore[0])
+
+
+def gathered_row(torch, args64):
+    """The pair kernel's gathered entry on the operands of the session
+    proxy run's first re-score (float64, as the pass made them): against
+    its plain version, float64 within F64_REL and float32 within F32_REL,
+    -inf in the same cells; CUDA-event medians of 20 kernel calls (f64,
+    f32) and the plain version's one float64 call; the bound of
+    ``speed_of_light.gathered_work_model``."""
+    from maple_tpu_torch.ops import append_pairs as AP
+    from maple_tpu_torch.tools.speed_of_light import gathered_work_model
+    rows = args64[-1]
+    args32 = [a.float() for a in args64[:-1]] + [rows]
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    ref = AP.append_scores_gathered_plain(*args64, uer=False)
+    t1.record()
+    k64 = AP.append_scores_gathered(*args64, uer=False)
+    k32 = AP.append_scores_gathered(*args32, uer=False)
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    ref, k64, k32 = (x.double().cpu().numpy() for x in (ref, k64, k32))
+    abs64 = same_inf_and_close(ref, k64, F64_REL, "gathered f64")
+    abs32 = same_inf_and_close(ref, k32, F32_REL, "gathered f32")
+    ms64 = median_ms(lambda: AP.append_scores_gathered(*args64, uer=False),
+                     reps=20)
+    ms32 = median_ms(lambda: AP.append_scores_gathered(*args32, uer=False),
+                     reps=20)
+    work = gathered_work_model(*args64[:2], rows)
+    P, Cflat = args64[:2]
+    K, M = rows.shape
+    shape = {"N": P.shape[0], "K": K, "M": M, "B1": P.shape[2],
+             "B2": Cflat.shape[-1] // 16}
+    print(f"[gathered] the SPR pass's re-score {json.dumps(shape)}: kernel "
+          f"f64 {ms64:.4f} ms, f32 {ms32:.4f} ms, plain f64 {plain_ms:.4f} "
+          f"ms (CUDA events); {work['contributing_pairs']} contributing "
+          f"pairs; bound {work['bound_ms']:.5f} ms ({work['bound_by']}), "
+          f"f64 {ms64 / work['bound_ms']:.1f}x above it; largest gap to "
+          f"plain f64 {abs64:.3e}, f32 {abs32:.3e}")
+    return {**shape, "ms": ms64, "ms_f32": ms32, "plain_ms": plain_ms,
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "contributing_pairs": work["contributing_pairs"],
+            "max_abs_err_f64": abs64, "max_abs_err_f32": abs32}
 
 
 def run_label(argv, exact=False, **env):
@@ -2604,7 +2706,7 @@ def main(argv):
     kern = phase_kernels(torch, run)
     del run
     b3000 = phase_placement_parity(torch)
-    runs, by_path = phase_spr_main_path(torch)
+    runs, by_path, gathered = phase_spr_main_path(torch)
     chunk = phase_screen_chunk(torch, phase_spr_parity(torch))
     phase_proxy_main_path(torch)
     f32 = phase_proxy_parity(torch)
@@ -2644,6 +2746,7 @@ def main(argv):
         "cuda_kernels_a_call": kern["split"]["cuda_kernels_a_call"],
         "yardstick": "maple_tpu_torch/csrc/append_pairs_grid.cu (grid_ms)",
         "resources": resources, **kern, "spr_screen_chunk": chunk,
+        "spr_rescore_gathered": gathered,
         "legacy_batch": legacy, "interval_algebra": k8,
         "mesh_tiles": tiles,
         "speed_of_light": sol}]}))

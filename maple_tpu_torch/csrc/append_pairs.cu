@@ -49,6 +49,11 @@
 // KQ is chosen so that the grid has about a thousand blocks.  Rows too long
 // for shared memory (B1 above 1152, B2 above 4096) are walked from device
 // memory through the same pointers.
+//
+// A second entry, append_pairs_gathered_*, scores each query against its own
+// list of candidate rows (scores [K, M], the device SPR pass's re-score of
+// each query's screened rows): the same compaction, then
+// append_walk_gathered, one query a block and one candidate a thread.
 
 #include <cuda_runtime.h>
 
@@ -225,26 +230,42 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The compact form of a call's rows in the two scratch tensors: the first
+// launch of every call.
+template <typename T>
+struct Compact {
+  int *cnt_p, *cnt_c;
+  uint32_t *w_p, *w_c;
+  T *rec_p, *rec_c;
+};
+
+template <typename T>
+int compact(const void* P, const void* C, void* scratch_int, void* scratch_rec,
+            int N, int K, int B1, int B2, cudaStream_t st, Compact<T>* c) {
+  const Scratch s = scratch_layout(N, K, B1, B2);
+  int* ints = static_cast<int*>(scratch_int);
+  T* recs = static_cast<T*>(scratch_rec);
+  c->cnt_p = ints + s.cnt_p;
+  c->cnt_c = ints + s.cnt_c;
+  c->w_p = reinterpret_cast<uint32_t*>(ints + s.w_p);
+  c->w_c = reinterpret_cast<uint32_t*>(ints + s.w_c);
+  c->rec_p = recs + s.rec_p;
+  c->rec_c = recs + s.rec_c;
+  const int rows = N + K;
+  compact_rows<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      static_cast<const T*>(P), static_cast<const T*>(C), c->cnt_p, c->cnt_c,
+      c->w_p, c->w_c, c->rec_p, c->rec_c, N, K, B1, B2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* P, const void* C, const void* prm, const void* mm,
            const void* rf, void* out, void* scratch_int, void* scratch_rec,
            int N, int K, int B1, int B2, int uer, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Scratch s = scratch_layout(N, K, B1, B2);
-  int* ints = static_cast<int*>(scratch_int);
-  T* recs = static_cast<T*>(scratch_rec);
-  int* cnt_p = ints + s.cnt_p;
-  int* cnt_c = ints + s.cnt_c;
-  uint32_t* w_p = reinterpret_cast<uint32_t*>(ints + s.w_p);
-  uint32_t* w_c = reinterpret_cast<uint32_t*>(ints + s.w_c);
-  T* rec_p = recs + s.rec_p;
-  T* rec_c = recs + s.rec_c;
-
-  const int rows = N + K;
-  compact_rows<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      static_cast<const T*>(P), static_cast<const T*>(C), cnt_p, cnt_c, w_p,
-      w_c, rec_p, rec_c, N, K, B1, B2);
-  cudaError_t err = cudaGetLastError();
+  Compact<T> c;
+  cudaError_t err = static_cast<cudaError_t>(
+      compact<T>(P, C, scratch_int, scratch_rec, N, K, B1, B2, st, &c));
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const WalkLaunch w = walk_launch(N, K, B1, B2, sizeof(T));
@@ -258,9 +279,92 @@ int launch(const void* P, const void* C, const void* prm, const void* mm,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<dim3(w.tiles, w.groups), kThreads, w.smem, st>>>(
-      cnt_p, cnt_c, w_p, w_c, rec_p, rec_c, static_cast<const T*>(prm),
+      c.cnt_p, c.cnt_c, c.w_p, c.w_c, c.rec_p, c.rec_c,
+      static_cast<const T*>(prm), static_cast<const T*>(mm),
+      static_cast<const T*>(rf), static_cast<T*>(out), N, K, B1, B2, w.KQ,
+      w.p_in_smem, w.c_in_smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Gathered pairs: each query against its own list of candidate rows (the
+// device SPR pass re-scores each query's screened top-M this way).  Block
+// (k, y) takes query k and its candidates rows[k][y * 128 + t], one a
+// thread; a row outside [0, N) scores -inf.  The query's walk words are
+// copied into shared memory; the candidates' words are read from device
+// memory in the tiled layout compact_rows wrote (L2 holds a pool of a few
+// MB).  All threads call walk_score(), a dead one with no entries, so the
+// warps meet as the walk needs.
+template <typename T, bool UER>
+__global__ void __launch_bounds__(kThreads)
+    append_walk_gathered(const int* __restrict__ cnt_p,
+                         const int* __restrict__ cnt_c,
+                         const uint32_t* __restrict__ w_p,
+                         const uint32_t* __restrict__ w_c,
+                         const T* __restrict__ rec_p,
+                         const T* __restrict__ rec_c,
+                         const long long* __restrict__ rows,
+                         const T* __restrict__ prm, const T* __restrict__ mm_g,
+                         const T* __restrict__ rf_g, T* __restrict__ out, int N,
+                         int M, int B1, int B2, int c_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_model = reinterpret_cast<T*>(smem_raw);
+  uint32_t* s_c = reinterpret_cast<uint32_t*>(s_model + kModel);
+  uint32_t* s_queue = s_c + (c_in_smem ? B2 : 0) + threadIdx.x;
+
+  const int k = blockIdx.x;
+  const int m = blockIdx.y * kThreads + threadIdx.x;
+  const int nC = cnt_c[k];
+  const uint32_t* wC = w_c + static_cast<size_t>(k) * B2;
+  if (threadIdx.x < 16) s_model[threadIdx.x] = mm_g[threadIdx.x];
+  if (threadIdx.x >= 16 && threadIdx.x < 20)
+    s_model[threadIdx.x] = rf_g[threadIdx.x - 16];
+  if (c_in_smem) {
+    for (int j = threadIdx.x; j < nC; j += kThreads) s_c[j] = wC[j];
+    wC = s_c;
+  }
+  __syncthreads();
+
+  const long long r = m < M ? rows[static_cast<size_t>(k) * M + m] : -1;
+  const bool live = r >= 0 && r < N;
+  const int n = live ? static_cast<int>(r) : 0;
+  const uint32_t* wP =
+      w_p + static_cast<size_t>(n / kTile) * kTile * B1 + n % kTile;
+  const T* pr = prm + 4 * k;
+  const T s = walk_score<T, UER>(
+      wP, kTile, live ? cnt_p[n] : 0, rec_p + static_cast<size_t>(n) * B1 * kRec,
+      wC, nC, rec_c + static_cast<size_t>(k) * B2 * kRec, pr[0], pr[1], pr[2],
+      pr[3], s_model, s_model + 16, s_queue, kThreads, nullptr);
+  if (m < M) out[static_cast<size_t>(k) * M + m] = live ? s : T(-INFINITY);
+}
+
+template <typename T>
+int launch_gathered(const void* P, const void* C, const void* rows,
+                    const void* prm, const void* mm, const void* rf, void* out,
+                    void* scratch_int, void* scratch_rec, int N, int K, int M,
+                    int B1, int B2, int uer, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Compact<T> c;
+  cudaError_t err = static_cast<cudaError_t>(
+      compact<T>(P, C, scratch_int, scratch_rec, N, K, B1, B2, st, &c));
+  if (err != cudaSuccess || K == 0 || M == 0) return static_cast<int>(err);
+  const int ygroups = (M + kThreads - 1) / kThreads;
+  if (ygroups > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int c_in_smem = sizeof(uint32_t) * B2 <= kSmemC;
+  const int smem = static_cast<int>(kModel * sizeof(T) +
+                                    (c_in_smem ? sizeof(uint32_t) * B2 : 0) +
+                                    sizeof(uint32_t) * 2 * kQueue * kThreads);
+  decltype(&append_walk_gathered<T, true>) kernel =
+      uer ? &append_walk_gathered<T, true> : &append_walk_gathered<T, false>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(K, ygroups), kThreads, smem, st>>>(
+      c.cnt_p, c.cnt_c, c.w_p, c.w_c, c.rec_p, c.rec_c,
+      static_cast<const long long*>(rows), static_cast<const T*>(prm),
       static_cast<const T*>(mm), static_cast<const T*>(rf),
-      static_cast<T*>(out), N, K, B1, B2, w.KQ, w.p_in_smem, w.c_in_smem);
+      static_cast<T*>(out), N, M, B1, B2, c_in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -292,6 +396,27 @@ int append_pairs_f64(const void* P, const void* C, const void* prm,
                      int B1, int B2, int uer, void* stream) {
   return launch<double>(P, C, prm, mm, rf, out, scratch_int, scratch_rec, N,
                         K, B1, B2, uer, stream);
+}
+
+// Scores [K, M] of query k against candidate rows[k * M + m] (int64; a row
+// outside [0, N) scores -inf), with the scratch of append_pairs_scratch(N,
+// K, B1, B2).
+int append_pairs_gathered_f32(const void* P, const void* C, const void* rows,
+                              const void* prm, const void* mm, const void* rf,
+                              void* out, void* scratch_int, void* scratch_rec,
+                              int N, int K, int M, int B1, int B2, int uer,
+                              void* stream) {
+  return launch_gathered<float>(P, C, rows, prm, mm, rf, out, scratch_int,
+                                scratch_rec, N, K, M, B1, B2, uer, stream);
+}
+
+int append_pairs_gathered_f64(const void* P, const void* C, const void* rows,
+                              const void* prm, const void* mm, const void* rf,
+                              void* out, void* scratch_int, void* scratch_rec,
+                              int N, int K, int M, int B1, int B2, int uer,
+                              void* stream) {
+  return launch_gathered<double>(P, C, rows, prm, mm, rf, out, scratch_int,
+                                 scratch_rec, N, K, M, B1, B2, uer, stream);
 }
 
 const char* maple_cuda_error_string(int err) {

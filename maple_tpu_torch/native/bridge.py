@@ -1,6 +1,8 @@
 """ctypes binding for the native genome-list kernel library.
 
-Builds ``native/maple_native.cpp`` on demand with g++ (no external build
+Builds this package's copy of the engine, ``native/maple_native.cpp``
+beside this module (held to the repository's ``native/maple_native.cpp``
+by ``tests/test_torch_copies.py``), on demand with g++ (no external build
 system needed) and exposes a :class:`NativeStore` holding reference/model
 state plus C++-owned genome-list vectors addressed by integer handles.
 
@@ -20,8 +22,7 @@ from typing import List, Optional
 
 import numpy as np
 
-_SRC = os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                    "maple_native.cpp")
+_SRC = os.path.join(os.path.dirname(__file__), "maple_native.cpp")
 # this package's own build of the library, beside its CUDA kernels
 _LIB = os.path.join(os.path.dirname(__file__), "..", "_build",
                     "libmaple_native.so")
@@ -240,6 +241,21 @@ def _load():
         C.c_void_p, C.c_int, C.c_int, C.c_int, d, p(C.c_int32), p(d),
         p(C.c_long), p(C.c_long), p(C.c_int64), p(C.c_int64),
         p(C.c_int64)]
+    lib.engine_spr_collect.restype = C.c_int
+    lib.engine_spr_collect.argtypes = [
+        C.c_void_p, C.c_int32, p(C.c_int32), p(C.c_int64), p(d),
+        p(C.c_uint8), p(d), p(C.c_int32), p(C.c_int32), p(C.c_int32),
+        p(C.c_int32), p(C.c_int32), p(C.c_int64), p(C.c_int32),
+        p(C.c_int32), p(C.c_int64)]
+    lib.engine_spr_release.restype = None
+    lib.engine_spr_release.argtypes = [C.c_void_p]
+    lib.engine_spr_apply.restype = C.c_int
+    lib.engine_spr_apply.argtypes = [
+        C.c_void_p, p(C.c_int32), C.c_long, C.c_int, C.c_int, d,
+        p(C.c_int32), p(d), p(C.c_long), p(C.c_long)]
+    lib.store_pack_stacked.restype = C.c_int
+    lib.store_pack_stacked.argtypes = [C.c_void_p, p(C.c_int64), C.c_long,
+                                       C.c_int32, C.c_int, p(d)]
     lib.engine_em.restype = C.c_int64
     lib.engine_em.argtypes = [C.c_void_p]
     lib.vec_type_counts.restype = None
@@ -503,6 +519,32 @@ class NativeStore:
             w.ctypes.data_as(p(C.c_float)),
             counts.ctypes.data_as(p(C.c_int32)))
         return idx, w, counts
+
+    def pack_stacked(self, vids, budget, query_side, out=None):
+        """The lists of ``vids`` in the pair kernel's stacked operand
+        layout, float64 (store_pack_stacked: what ``stack_fields_host``
+        makes of ``pack_genome_lists`` of their tuples): candidates
+        ``[n, 16, budget]``, with ``query_side`` queries ``[n, budget,
+        16]``.  ``out``, where given, is a C-contiguous float64 array of
+        that size to write into.  Not for a model with error rates."""
+        vids = np.ascontiguousarray(vids, np.int64)
+        n = len(vids)
+        shape = (n, budget, 16) if query_side else (n, 16, budget)
+        if out is None:
+            out = np.empty(shape, np.float64)
+        if out.dtype != np.float64 or not out.flags.c_contiguous \
+                or out.size != n * 16 * budget:
+            raise ValueError(f"pack_stacked: out must be a C-contiguous "
+                             f"float64 array of {n * 16 * budget} values")
+        rc = self.lib.store_pack_stacked(
+            self.h, vids.ctypes.data_as(C.POINTER(C.c_int64)), n, budget,
+            1 if query_side else 0,
+            out.ctypes.data_as(C.POINTER(C.c_double)))
+        if rc:
+            raise ValueError("pack_stacked: " + (
+                "the store's model has error rates" if rc == -1 else
+                f"a list is longer than the budget {budget}"))
+        return out.reshape(shape)
 
     def shorten(self, vid):
         self.lib.k_shorten(self.h, vid)

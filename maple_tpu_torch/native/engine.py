@@ -769,9 +769,12 @@ class NativeSession:
     routed through the session (the phase helpers check
     ``rt.native_session`` first) or read only topology refreshed via
     :meth:`sync_topology` (the newick writers), or suspend the session
-    around itself (:meth:`suspend` / :meth:`resume`: the device SPR pass,
-    ``parallel/batch_spr.py``).  Scopes are opened only for configurations
-    where that holds — see ``pipeline.Run._native_session_eligible``.
+    around itself (:meth:`suspend` / :meth:`resume`: a device SPR pass
+    that runs on the host tree, ``parallel/batch_spr.py``).  The device
+    proxy SPR pass runs against the resident tree instead
+    (:meth:`spr_collect`, :meth:`spr_apply`).  Scopes are opened only for
+    configurations where that holds — see
+    ``pipeline.Run._native_session_eligible``.
     """
 
     def __init__(self, rt, root):
@@ -944,6 +947,84 @@ class NativeSession:
         nr = int(new_root[0])
         return (nr if nr >= 0 else None, float(improvement[0]))
 
+    def spr_collect(self, root, placement_thresh) -> dict:
+        """The queries and anchors of a device SPR pass, from the resident
+        tree (engine_spr_collect; the gates of ``parallel/batch_spr.py``
+        ``_collect_queries`` and ``_collect_anchors``).  A dict of arrays,
+        one value a query (``q_*``: node, vid, blen, tip, base, lo, hi,
+        excl [K, 2], len) or an anchor (``a_*``: node, vid, tin, len); the
+        vids are global-frame store handles, valid until
+        :meth:`spr_release`."""
+        self._sync()
+        rt = self.rt
+        self.lib.engine_set_spr_params(
+            self.h, rt.dc.thresholdLogLKoptimizationTopology,
+            placement_thresh, rt.cfg.defaultBLen, rt.cfg.maxReplacements)
+        n = self.lib.engine_node_count(self.h)
+        i32, i64, f64 = np.int32, np.int64, np.float64
+        q = {"node": np.empty(n, i32), "vid": np.empty(n, i64),
+             "blen": np.empty(n, f64), "tip": np.empty(n, np.uint8),
+             "base": np.empty(n, f64), "lo": np.empty(n, i32),
+             "hi": np.empty(n, i32), "excl": np.empty((n, 2), i32),
+             "len": np.empty(n, i32)}
+        a = {"node": np.empty(n, i32), "vid": np.empty(n, i64),
+             "tin": np.empty(n, i32), "len": np.empty(n, i32)}
+        counts = np.zeros(2, i64)
+
+        def P(arr):
+            return arr.ctypes.data_as(C.POINTER(
+                np.ctypeslib.as_ctypes_type(arr.dtype)))
+
+        rc = self.lib.engine_spr_collect(
+            self.h, root, P(q["node"]), P(q["vid"]), P(q["blen"]),
+            P(q["tip"]), P(q["base"]), P(q["lo"]), P(q["hi"]),
+            P(q["excl"]), P(q["len"]), P(a["node"]), P(a["vid"]),
+            P(a["tin"]), P(a["len"]), P(counts))
+        if rc != 0:
+            self.spr_release()
+            self._err("SPR collect")
+        K, N = int(counts[0]), int(counts[1])
+        out = {f"q_{k}": v[:K] for k, v in q.items()}
+        out.update({f"a_{k}": v[:N] for k, v in a.items()})
+        return out
+
+    def spr_release(self):
+        """Free the handles :meth:`spr_collect` made."""
+        self.lib.engine_spr_release(self.h)
+
+    def spr_apply(self, nodes, strict_stop, allowed_fails, threshold_log_lk,
+                  threshold_topology_placement):
+        """The serial re-validated apply of a sorted proposal list on the
+        resident tree (engine_spr_apply; ``search/parallel_spr.py``
+        ``apply_spr_moves``): ``nodes`` in ascending order of improvement,
+        applied best first.  Returns (new_root_or_None, improvement,
+        topology updates, branch-length updates)."""
+        self._sync()
+        rt = self.rt
+        self.lib.engine_set_spr_params(
+            self.h, rt.dc.thresholdLogLKoptimizationTopology,
+            threshold_topology_placement, rt.cfg.defaultBLen,
+            rt.cfg.maxReplacements)
+        nodes = np.ascontiguousarray(nodes, np.int32)
+        new_root = np.zeros(1, np.int32)
+        improvement = np.zeros(1, np.float64)
+        topo = np.zeros(1, np.int64)
+        blen = np.zeros(1, np.int64)
+        rc = self.lib.engine_spr_apply(
+            self.h, nodes.ctypes.data_as(C.POINTER(C.c_int32)), len(nodes),
+            1 if strict_stop else 0, allowed_fails, threshold_log_lk,
+            new_root.ctypes.data_as(C.POINTER(C.c_int32)),
+            improvement.ctypes.data_as(C.POINTER(C.c_double)),
+            topo.ctypes.data_as(C.POINTER(C.c_long)),
+            blen.ctypes.data_as(C.POINTER(C.c_long)))
+        if rc != 0:
+            self._err("SPR apply")
+        if topo[0] or blen[0]:
+            rt.mark_mutated()
+        nr = int(new_root[0])
+        return (nr if nr >= 0 else None, float(improvement[0]),
+                int(topo[0]), int(blen[0]))
+
     def count_dirty(self):
         out = np.zeros(2, np.int64)
         self.lib.engine_count_dirty(
@@ -1037,8 +1118,8 @@ def native_session_eligible(rt) -> bool:
     when every consumer in the scope is native-routed: no python-side
     vector readers (SPRTA / estimateMAT / estimateErrors annotations,
     traces, parallel-SPR forks, error-model tip refreshes, time trees,
-    debug checks).  The device SPR pass reads them too, and suspends the
-    session around itself."""
+    debug checks).  The device SPR pass runs inside the session, or, where
+    it reads the host tree, suspends the session around itself."""
     cfg = rt.cfg
     error_model_requested = bool(
         cfg.errorRateSiteSpecificFile or cfg.errorRateFixed

@@ -10,8 +10,9 @@ report of registers and spills) is kept beside the library, so a later
 process that finds the library built reads the same report.  A failed
 build or load raises.
 
-``csrc/append_walk_host.cpp``, the host loop around the merge walk that the
-CPU tests call, is built the same way with ``g++`` (:func:`host_walk`).
+``csrc/append_walk_host.cpp``, the host loop around the merge walk (the
+CPU tests' dense loop, and the gathered entry on CPU tensors), is built the
+same way with ``g++`` (:func:`host_walk`).
 """
 from __future__ import annotations
 
@@ -38,12 +39,17 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # P, C, prm, mm, rf, out, (scratch ...), N, K, B1, B2, uer, stream
 _GRID_ARGS = [_PTR] * 6 + [_INT] * 5 + [_PTR]
 _WALK_ARGS = [_PTR] * 8 + [_INT] * 5 + [_PTR]
+# P, C, rows, prm, mm, rf, out, scratch_int, scratch_rec, N, K, M, B1, B2,
+# uer, stream
+_GATHERED_ARGS = [_PTR] * 9 + [_INT] * 6 + [_PTR]
 _LONG_P = ctypes.POINTER(ctypes.c_longlong)
 # every C function of the kernel library: name -> (argtypes, restype);
 # ctypes would cut an undeclared pointer to 32 bits
 _KERNEL_FUNCTIONS = {
     "append_pairs_f32": (_WALK_ARGS, _INT),
     "append_pairs_f64": (_WALK_ARGS, _INT),
+    "append_pairs_gathered_f32": (_GATHERED_ARGS, _INT),
+    "append_pairs_gathered_f64": (_GATHERED_ARGS, _INT),
     "append_pairs_scratch": ([_INT] * 4 + [_LONG_P] * 2, None),
     "maple_cuda_error_string": ([_INT], ctypes.c_char_p),
     "append_pairs_grid_f32": (_GRID_ARGS, _INT),
@@ -51,9 +57,13 @@ _KERNEL_FUNCTIONS = {
 }
 # P, C, prm, mm, rf, out, steps, pairs, n_p, n_c, N, K, B1, B2, uer
 _HOST_WALK_ARGS = [_PTR] * 10 + [_INT] * 5
+# P, C, rows, prm, mm, rf, out, N, K, M, B1, B2, uer
+_HOST_GATHERED_ARGS = [_PTR] * 7 + [_INT] * 6
 _HOST_FUNCTIONS = {
     "append_walk_host_f32": (_HOST_WALK_ARGS, _INT),
     "append_walk_host_f64": (_HOST_WALK_ARGS, _INT),
+    "append_walk_host_gathered_f32": (_HOST_GATHERED_ARGS, _INT),
+    "append_walk_host_gathered_f64": (_HOST_GATHERED_ARGS, _INT),
 }
 
 
@@ -126,8 +136,9 @@ def library() -> Built:
 @functools.cache
 def host_walk() -> ctypes.CDLL:
     """The host loop around the merge walk (``append_walk_host_f32`` and
-    ``_f64``), built with g++ at first use.  For tests: no path of the
-    package calls it."""
+    ``_f64``, the tests' dense loop; ``append_walk_host_gathered_*``, which
+    ``append_scores_gathered`` runs on CPU tensors), built with g++ at
+    first use."""
     return _load("libmaple_walk_host", lambda: "g++", GXX_FLAGS,
                  [CSRC / "append_walk_host.cpp"], _HOST_FUNCTIONS)[0]
 

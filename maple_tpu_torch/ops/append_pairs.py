@@ -11,6 +11,14 @@ two-pointer merge of the two lists.
 On a CUDA tensor :func:`append_scores_prestacked` launches the merge-walk
 kernel of ``csrc/append_pairs.cu``; on a CPU tensor it runs
 :func:`append_scores_prestacked_plain`; on any other device it raises.
+:func:`append_scores_gathered` scores each query against its own list of
+candidate rows (the device SPR pass's re-score of each query's screened
+rows): on a CUDA tensor the kernel's gathered entry, on a CPU tensor the
+host build of the same walk (``csrc/append_walk_host.cpp``), whose
+functions are the kernel's.  Its plain PyTorch version,
+:func:`append_scores_gathered_plain`, is the tests' float64 yardstick:
+it costs some ten seconds a pass at 1,000 genomes, against a tenth for
+the walk.
 :func:`append_scores_prestacked_grid` launches the kernel that visits the
 whole B1 x B2 entry grid instead (``csrc/append_pairs_grid.cu``): the
 yardstick the walk kernel is timed and checked against, on no path.
@@ -90,6 +98,62 @@ def append_scores_prestacked_grid(Pstk, Cflat, prm, mm_flat, rf, *,
                  N, K, B1, B2, int(bool(uer)), stream)
     _build.check(built.lib, err, "append_pairs_grid kernel launch")
     return out
+
+
+def append_scores_gathered(Pstk, Cflat, prm, mm_flat, rf, rows, *,
+                           uer: bool):
+    """Scores [K, M]: query k against candidate ``rows[k, m]``.
+
+    The operands of :func:`append_scores_prestacked`, and ``rows`` [K, M]
+    int64 on their device: a row outside [0, N) scores -inf.  The walk and
+    its sums are the dense kernel's; only the pairs differ.
+    ``append_scores_gathered.launches`` counts the calls that launched the
+    kernel (two CUDA kernels: the rows' compact form, then the walk)."""
+    device = Pstk.device
+    N, _, B1 = _check_inputs(Pstk, Cflat, prm, mm_flat, rf)
+    K = Cflat.shape[0]
+    if rows.dtype != torch.int64 or rows.device != device \
+            or tuple(rows.shape[:1]) != (K,) or rows.dim() != 2 \
+            or not rows.is_contiguous():
+        raise ValueError(f"rows: want a contiguous int64 [{K}, M] tensor "
+                         f"on {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"append_scores_gathered: no kernel for device "
+                         f"{device}")
+    M = rows.shape[1]
+    B2 = Cflat.shape[-1] // NFIELDS
+    out = torch.empty((K, M), dtype=Pstk.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    if device.type == "cpu":
+        lib = _build.host_walk()
+        fn = (lib.append_walk_host_gathered_f32 if Pstk.dtype == torch.float32
+              else lib.append_walk_host_gathered_f64)
+        fn(Pstk.data_ptr(), Cflat.data_ptr(), rows.data_ptr(),
+           prm.data_ptr(), mm_flat.data_ptr(), rf.data_ptr(),
+           out.data_ptr(), N, K, M, B1, B2, int(bool(uer)))
+        return out
+    built = _build.library()
+    n_int, n_rec = ctypes.c_longlong(), ctypes.c_longlong()
+    built.lib.append_pairs_scratch(N, K, B1, B2, ctypes.byref(n_int),
+                                   ctypes.byref(n_rec))
+    scratch_int = torch.empty(n_int.value, dtype=torch.int32, device=device)
+    scratch_rec = torch.empty(n_rec.value, dtype=Pstk.dtype, device=device)
+    fn = (built.lib.append_pairs_gathered_f32 if Pstk.dtype == torch.float32
+          else built.lib.append_pairs_gathered_f64)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(Pstk.data_ptr(), Cflat.data_ptr(), rows.data_ptr(),
+                 prm.data_ptr(), mm_flat.data_ptr(), rf.data_ptr(),
+                 out.data_ptr(), scratch_int.data_ptr(),
+                 scratch_rec.data_ptr(), N, K, M, B1, B2, int(bool(uer)),
+                 stream)
+    _build.check(built.lib, err, "append_pairs_gathered kernel launch")
+    append_scores_gathered.launches += 1
+    return out
+
+
+append_scores_gathered.launches = 0
 
 
 def _kernel_call(Pstk, Cflat, prm, mm_flat, rf):
@@ -190,6 +254,82 @@ def append_scores_prestacked_plain(Pstk, Cflat, prm, mm_flat, rf, *,
     if uer:
         scores = scores + (prm[:, 1] * prm[:, 3])[:, None]
     return scores
+
+
+def append_scores_gathered_plain(Pstk, Cflat, prm, mm_flat, rf, rows, *,
+                                 uer: bool):
+    """Plain PyTorch version of the gathered entry, as the walk does it:
+    for each (query, candidate) the distinct ends of the two entry lists
+    cut [0, lRef] into the union segments, the merge's steps; the pair of
+    entries under a segment (the first entry of each list that ends at or
+    after it) is found by a sorted search, and the contributing pairs' log
+    factors (:func:`_pair_log_factors`) are added up.  The sum runs in
+    another order than the walk's, so scores agree to rounding."""
+    N = Pstk.shape[0]
+    K, M = rows.shape
+    dtype = Pstk.dtype
+    C = Cflat.reshape(K, -1, NFIELDS)
+    prm = prm.reshape(K, 4)
+    mm_v = mm_flat.reshape(16)
+    mm = [[mm_v[4 * i + j] for j in range(4)] for i in range(4)]
+    rf_v = rf.reshape(4)
+    rfl = [rf_v[q] for q in range(4)]
+    out = torch.full((K, M), float("-inf"), dtype=dtype, device=Pstk.device)
+    live = (rows >= 0) & (rows < N)
+    for k0, Pg, Cc, ki, mi, i, j in _gathered_pairs(Pstk, C, rows):
+        kn = Cc.shape[0]
+        acc = torch.zeros(kn * M, dtype=dtype, device=Pstk.device)
+        if ki.numel():
+            f = _pair_log_factors(Pg[ki, mi, :, i], Cc[ki, j, :],
+                                  prm[k0 + ki], mm, rfl, uer=uer)
+            acc.index_add_(0, ki * M + mi, f)
+        pk = prm[k0:k0 + kn]
+        s = acc.reshape(kn, M) + (pk[:, 0] * pk[:, 2])[:, None]
+        if uer:
+            s = s + (pk[:, 1] * pk[:, 3])[:, None]
+        out[k0:k0 + kn] = torch.where(live[k0:k0 + kn], s, out[k0:k0 + kn])
+    return out
+
+
+def _gathered_pairs(Pstk, C, rows):
+    """The contributing entry pairs of each (query k, candidate rows[k, m]),
+    a chunk of queries at a time: yields (k0, the chunk's candidates [k, M,
+    F, B1], its queries [k, B2, F], and for each pair its query, candidate,
+    candidate entry and query entry).  Rows outside [0, N) give pairs that
+    the caller masks."""
+    N, _, B1 = Pstk.shape
+    K, M = rows.shape
+    B2 = C.shape[1]
+    kc = max(1, (_PLAIN_PLANE_ELEMS // 2) // max(1, M * (B1 + B2)))
+    for k0 in range(0, K if N else 0, kc):
+        Pg = Pstk[rows[k0:k0 + kc].clamp(0, N - 1)]      # [k, M, F, B1]
+        Cc = C[k0:k0 + kc]                                # [k, B2, F]
+        kn = Cc.shape[0]
+        p_end = Pg[:, :, F_END, :].contiguous()
+        c_end = Cc[:, None, :, F_END].expand(kn, M, B2).contiguous()
+        ends = torch.cat([p_end, c_end], -1).sort(-1).values
+        prev = torch.cat([torch.zeros_like(ends[..., :1]), ends[..., :-1]],
+                         -1)
+        i = torch.searchsorted(p_end, ends).clamp_(max=B1 - 1)
+        j = torch.searchsorted(c_end, ends).clamp_(max=B2 - 1)
+        tP = Pg[:, :, F_TYPE, :].gather(-1, i)
+        tC = Cc[:, None, :, F_TYPE].expand(kn, M, B2).gather(-1, j)
+        seg = (ends > prev) & _live(tP) & _live(tC) \
+            & ~((tP == float(TYPE_R)) & (tC == float(TYPE_R))) \
+            & ~((tP < 3.5) & (tP == tC))
+        ki, mi, si = seg.nonzero(as_tuple=True)
+        yield k0, Pg, Cc, ki, mi, i[ki, mi, si], j[ki, mi, si]
+
+
+def count_gathered_contributing_pairs(Pstk, Cflat, rows) -> int:
+    """How many entry pairs of the gathered (query, candidate) pairs add a
+    log factor (rows outside [0, N) add none): the data-dependent work of
+    one gathered call."""
+    N = Pstk.shape[0]
+    live = (rows >= 0) & (rows < N)
+    C = Cflat.reshape(Cflat.shape[0], -1, NFIELDS)
+    return sum(int(live[k0 + ki, mi].sum())
+               for k0, _, _, ki, mi, _, _ in _gathered_pairs(Pstk, C, rows))
 
 
 def _live(types):

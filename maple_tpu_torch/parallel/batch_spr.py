@@ -11,11 +11,25 @@ Two single-device screens, chosen as in the JAX package:
 - the proxy screen (native kernels, the default): hashed mutation
   features, one ``[K, D] x [D, cap]`` float32 product per chunk of 256
   queries, on-device masks of each query's own subtree, parent and
-  sibling, top-128 per query; the native engine then re-scores those
-  anchors exactly in float64 (``store.append_grid``);
+  sibling, top-128 per query; those anchors are then re-scored exactly in
+  float64;
 - the exhaustive screen (``MAPLE_SPR_EXACT=1`` or python kernels): the
   appendProbNode pair kernel (``csrc/append_pairs.cu``) of each chunk of 64
   queries against the whole anchor pool, the same masks, top-1 per query.
+
+Where the proxy screen runs inside a live engine session (``native/engine.py``
+``NativeSession``) on a model without error rates or site rates, the pass
+stays in the engine (``_screen_session``): one native call collects the
+queries and anchors from the resident tree, with their features' handles,
+Euler intervals and exclusions; the store packs their lists in the pair
+kernel's stacked layout; the device screens them and re-scores each
+query's top-128 with the pair kernel's gathered entry in float64
+(``spr_rescore``), so that only each query's best score and row come back;
+and one native call applies the proposals on the resident tree.  Elsewhere
+(no session, error models, site rates) the host collects the pass from
+``rt.tree``, the native engine re-scores the top-128 on the host
+(``store.append_grid``) and the copied ``apply_spr_moves`` applies it, a
+live session suspended around it.
 
 Over a mesh of ranks (``mesh=``, :mod:`maple_tpu_torch.parallel.mesh`) the
 screen is exhaustive on the interval-algebra scorer: the pool sharded over
@@ -33,9 +47,11 @@ records into the tree runtime's tracer (``runtime/phases.py``) the span
 ``spr.pass`` with its children ``spr.collect``, ``spr.pack``,
 ``spr.decide`` and ``spr.apply`` (the ``ScreenPass`` seconds of the same
 names are theirs), and the counters ``spr.queries``, ``spr.proposals``
-and ``spr.applied`` (moves the serial apply made).  Inside a live engine
-session the pass also holds ``engine.suspend`` and ``engine.resume``
-(:func:`device_topology_update`).
+and ``spr.applied`` (moves the serial apply made).  The proxy screen counts
+the pairs it re-scores exactly, ``spr.rescored_device`` in the session and
+``spr.rescored_host`` outside it, and the passes made in the session,
+``spr.native_passes``.  A pass that suspends a live session also holds
+``engine.suspend`` and ``engine.resume`` (:func:`device_topology_update`).
 
 Reference crawl being replaced: findBestParentTopology
 MAPLEv0.7.5.4.py:6817-7724 with stop rules :8080-8088.
@@ -51,9 +67,11 @@ import numpy as np
 import torch
 
 from ..models.hnz import get_hnz
+from ..ops import _build
 from ..ops import pack as OP
-from ..ops.append_pairs import append_scores_prestacked
-from ..ops.layout import stack_fields_host
+from ..ops.append_pairs import (append_scores_gathered,
+                                append_scores_prestacked)
+from ..ops.layout import NFIELDS, stack_fields_host
 from ..runtime.tree import set_all_dirty
 from ..search.parallel_spr import apply_spr_moves
 from ..search.spr import SprCounters
@@ -269,7 +287,14 @@ def spr_screen_step(AF, valid, a_tin, q_fidx, q_fw, q_lo, q_hi, excl, *,
     q_fidx [K, F] int, q_fw [K, F] float32, q_lo/q_hi [K] int32, excl
     [K, 2] int32.  Returns float32 (scores [K, M], rows [K, M]).  The
     products are full float32 (as ``preferred_element_type=f32``): a bf16
-    pool is upcast block by block, never multiplied in bf16."""
+    pool is upcast block by block, never multiplied in bf16.
+
+    On CUDA the first call of a process also builds and loads the pair
+    kernel's library, whose gathered entry re-scores the screened rows
+    (``spr_rescore``): set-up warms the pass with a call of this function,
+    so no pass pays the build.  Nothing of it is launched here."""
+    if AF.device.type == "cuda":
+        _build.library()
     scores = proxy_scores(AF, q_fidx, q_fw)
     _mask_trivial_targets(scores, valid, a_tin, q_lo, q_hi, excl)
     return torch.topk(scores, min(topm, AF.shape[0]), dim=1)
@@ -312,21 +337,108 @@ def _accept(proposals, node, anchor, best, base, placement_thresh):
 
 
 def _apply(rt, root, proposals, params, counters, st: ScreenPass, t0,
-           what: str):
+           what: str, ses=None):
+    """The serial re-validated apply of a pass's proposals, best
+    improvement first: the copied host ``apply_spr_moves`` on ``rt.tree``,
+    or in the live engine session ``ses`` (``NativeSession.spr_apply``,
+    the same moves on the resident tree)."""
     proposals.sort(key=lambda p: p[2])
     st.proposals = len(proposals)
     print(f"Device SPR screen: {st.queries} queries x {st.anchors} anchors "
           f"{what}-> {len(proposals)} proposals in {time.time() - t0:.2f}s",
           flush=True)
-    set_all_dirty(rt.tree, root, dirtiness=False)
+    if ses is None:
+        set_all_dirty(rt.tree, root, dirtiness=False)
     applied = counters.topology_updates
     with rt.tracer.span("spr.apply") as sp:
-        out = apply_spr_moves(rt, proposals, params, counters)
+        if ses is None:
+            out = apply_spr_moves(rt, proposals, params, counters)
+        else:
+            new_root, improvement, topo, blen = ses.spr_apply(
+                [p[0] for p in proposals], *params)
+            counters.topology_updates += topo
+            counters.blen_updates += blen
+            out = new_root, improvement
     st.apply_s = sp.seconds
     rt.tracer.count("spr.queries", st.queries)
     rt.tracer.count("spr.proposals", st.proposals)
     rt.tracer.count("spr.applied", counters.topology_updates - applied)
     return out
+
+
+def _export_feats(store, vids, query_side: bool, fmax: int):
+    """Hashed features of store handles (global frame); the budget doubles
+    until no row fills it (truncation is silent)."""
+    while True:
+        idx, w, cnt = store.export_feats(vids, query_side, D_HASH, G_BUCKETS,
+                                         fmax)
+        if cnt.max(initial=0) < fmax:
+            return idx, w
+        fmax *= 2
+
+
+def _queue_screen(st: ScreenPass, store, device, a_vids, q_vids, a_tin, q_lo,
+                  q_hi, excl, *, chunk: int, topm: int, rescore=None):
+    """Queue the proxy screen of a pass on ``device``: the anchors'
+    features into the anchor matrix, then one ``spr_screen_step`` a chunk
+    of queries.  Nothing is read: returns the ``_Events`` and, a chunk,
+    (s, e, host copy of its top-M scores, of their rows, its end event).
+    With ``rescore(ts, ti)``, a function that queues more work on the
+    pass's top-M (all chunks') and returns two tensors, one entry (0, K,
+    host copies of rescore's tensors, end event) instead.
+
+    ``a_tin`` [N] is each anchor's Euler entry, ``q_lo`` / ``q_hi`` [K] each
+    query's Euler interval and ``excl`` [K, 2] its parent's and sibling's
+    anchor rows (-1 where none)."""
+    aidx, aw = _export_feats(store, a_vids, False, FMAX_ANCHOR)
+    qidx, qw = _export_feats(store, q_vids, True, FMAX_QUERY)
+    N = len(a_vids)
+    K_total = len(q_vids)
+    cap = 1024
+    while cap < N:
+        cap *= 2
+    # bf16 features at 512k+ rows (as the JAX package, for the halved
+    # footprint); the exact top-M re-score absorbs the rounding, and topm
+    # deepens to keep recall
+    dtype = torch.float32
+    if cap >= BF16_CAP:
+        dtype = torch.bfloat16
+        topm = max(topm, BF16_TOPM)
+    events = _Events(device)
+    start = events.begin()
+    AF = torch.zeros((cap, D), dtype=dtype, device=device)
+    valid = torch.zeros(cap, dtype=torch.bool, device=device)
+    for s0 in range(0, N, SCATTER_ROWS):
+        rows = np.arange(s0, min(N, s0 + SCATTER_ROWS), dtype=np.int64)
+        scatter_only(AF, valid, upload(rows, device),
+                     upload(aidx[rows], device), upload(aw[rows], device),
+                     upload(np.ones(len(rows), dtype=bool), device))
+    a_tin_cap = np.full(cap, _NO_TIN, dtype=np.int32)
+    a_tin_cap[:N] = a_tin
+    dev_a_tin = upload(a_tin_cap, device)
+    events.end(start)
+
+    pending = []
+    for s in range(0, K_total, chunk):
+        e = min(K_total, s + chunk)
+        start = events.begin()
+        ts, ti = spr_screen_step(
+            AF, valid, dev_a_tin, upload(qidx[s:e], device),
+            upload(qw[s:e], device),
+            upload(np.asarray(q_lo[s:e], np.int32), device),
+            upload(np.asarray(q_hi[s:e], np.int32), device),
+            upload(np.asarray(excl[s:e], np.int32), device), topm=topm)
+        if rescore is None:
+            ts, ti = to_host(ts, ti)
+        pending.append((s, e, ts, ti, events.end(start)))
+    st.chunks = len(pending)
+    if rescore is not None and pending:
+        start = events.begin()
+        a, b = rescore(torch.cat([p[2] for p in pending]),
+                       torch.cat([p[3] for p in pending]))
+        a, b = to_host(a, b)
+        pending = [(0, K_total, a, b, events.end(start))]
+    return events, pending
 
 
 def _screen_single_device(rt, root: int, params, counters, t0, *,
@@ -354,67 +466,17 @@ def _screen_single_device(rt, root: int, params, counters, t0, *,
     with rt.tracer.span("spr.pack") as sp:
         store = rt.kern.store
         a_vids = np.asarray([h.vid for h in a_handles], np.int64)
-        fmax_a = FMAX_ANCHOR
-        while True:  # budgets grow on saturation (truncation is silent)
-            aidx, aw, cnt = store.export_feats(a_vids, False, D_HASH,
-                                               G_BUCKETS, fmax_a)
-            if cnt.max(initial=0) < fmax_a:
-                break
-            fmax_a *= 2
         q_vids = np.asarray([h.vid for h in q_handles], np.int64)
-        fmax_q = FMAX_QUERY
-        while True:
-            qidx, qw, cnt = store.export_feats(q_vids, True, D_HASH,
-                                               G_BUCKETS, fmax_q)
-            if cnt.max(initial=0) < fmax_q:
-                break
-            fmax_q *= 2
-
         N = len(anchors)
         K_total = len(q_nodes)
         st.queries, st.anchors = K_total, N
-        cap = 1024
-        while cap < N:
-            cap *= 2
-        # bf16 features at 512k+ rows (as the JAX package, for the
-        # halved footprint); the exact top-M re-score absorbs the rounding,
-        # and topm deepens to keep recall
-        dtype = torch.float32
-        if cap >= BF16_CAP:
-            dtype = torch.bfloat16
-            topm = max(topm, BF16_TOPM)
-        events = _Events(device)
-        start = events.begin()
-        AF = torch.zeros((cap, D), dtype=dtype, device=device)
-        valid = torch.zeros(cap, dtype=torch.bool, device=device)
-        for s0 in range(0, N, SCATTER_ROWS):
-            rows = np.arange(s0, min(N, s0 + SCATTER_ROWS), dtype=np.int64)
-            scatter_only(AF, valid, upload(rows, device),
-                         upload(aidx[rows], device), upload(aw[rows], device),
-                         upload(np.ones(len(rows), dtype=bool), device))
         tin, tout = _euler_intervals(tree, root)
-        a_tin = np.full(cap, _NO_TIN, dtype=np.int32)
-        a_tin[:N] = tin[np.asarray(anchors)]
-        dev_a_tin = upload(a_tin, device)
-        events.end(start)
-        row_of = {node: i for i, node in enumerate(anchors)}
         nodes_arr = np.asarray(q_nodes)
-
-        pending = []
-        for s in range(0, K_total, chunk):
-            e = min(K_total, s + chunk)
-            nodes = nodes_arr[s:e]
-            excl = _exclusions(tree, nodes, row_of)
-            start = events.begin()
-            ts, ti = spr_screen_step(
-                AF, valid, dev_a_tin, upload(qidx[s:e], device),
-                upload(qw[s:e], device),
-                upload(tin[nodes].astype(np.int32), device),
-                upload(tout[nodes].astype(np.int32), device),
-                upload(excl, device), topm=topm)
-            ts, ti = to_host(ts, ti)
-            pending.append((s, e, ts, ti, events.end(start)))
-        st.chunks = len(pending)
+        row_of = {node: i for i, node in enumerate(anchors)}
+        events, pending = _queue_screen(
+            st, store, device, a_vids, q_vids, tin[np.asarray(anchors)],
+            tin[nodes_arr], tout[nodes_arr],
+            _exclusions(tree, nodes_arr, row_of), chunk=chunk, topm=topm)
     st.pack_s = sp.seconds
 
     # exact re-score of each query's top-M (native appendProbNode, f64)
@@ -447,8 +509,123 @@ def _screen_single_device(rt, root: int, params, counters, t0, *,
                             placement_thresh)
         st.device_s = events.seconds()
     st.decide_s = sp.seconds
+    rt.tracer.count("spr.rescored_host", n_exact)
     return _apply(rt, root, proposals, params, counters, st, t0,
                   f"(proxy; {n_exact} exact re-scores) ")
+
+
+def _stacked(store, vids, lens, query_side: bool, device: torch.device):
+    """The lists of ``vids`` in the pair kernel's stacked layout, float64,
+    on ``device`` (a budget of the longest list): packed by the store
+    straight into pinned memory on CUDA."""
+    B = max(1, int(np.max(lens, initial=1)))
+    n = len(vids)
+    if device.type == "cuda":
+        buf = torch.empty(n * NFIELDS * B, dtype=torch.float64,
+                          pin_memory=True)
+        store.pack_stacked(vids, B, query_side, out=buf.numpy())
+        out = buf.to(device, non_blocking=True)
+    else:
+        out = torch.from_numpy(store.pack_stacked(vids, B, query_side))
+    return out.reshape((n, B, NFIELDS) if query_side else (n, NFIELDS, B))
+
+
+def spr_rescore(P, Cflat, prm, mm, rf, ts, ti, n_anchors: int):
+    """The exact re-score of a pass's screened rows on the device: each
+    query against its top-M rows of ``spr_screen_step`` by the pair kernel's
+    gathered entry, in float64, and the first best of each query.
+
+    P [N, F, B1] the anchors' stacked lists, Cflat [k, 1, B2 * F] the
+    queries, prm [k, 1, 4] (blen, tip, globalTotRate, 0), mm [1, 1, 16],
+    rf [1, 1, 4], all float64 on one device; ts / ti [k, M] the screen's
+    scores and rows.  A row that is padding (>= ``n_anchors``) or
+    masked (score -inf) scores -inf.  Returns (best [k] float64, row [k]
+    int64)."""
+    rows = torch.where((ti < n_anchors) & torch.isfinite(ts), ti,
+                       torch.full_like(ti, -1))
+    exact = append_scores_gathered(P, Cflat, prm, mm, rf, rows, uer=False)
+    j = exact.argmax(1, keepdim=True)
+    return exact.gather(1, j).squeeze(1), ti.gather(1, j).squeeze(1)
+
+
+def _proposals(q_nodes, a_nodes, best, row, base, placement_thresh):
+    """``_accept``'s test over a pass's queries at once: (node, anchor,
+    improvement) of each query, in query order, whose best re-attachment
+    ``best`` (at anchor row ``row``) beats its current one ``base``."""
+    improvement = best - base
+    ok = np.isfinite(best) & (best + placement_thresh > base) \
+        & (improvement > 0.0)
+    return [(int(q_nodes[k]), int(a_nodes[row[k]]), float(improvement[k]))
+            for k in np.flatnonzero(ok)]
+
+
+def _screen_session(rt, ses, root: int, params, counters, t0, *,
+                    device: torch.device, chunk: int = PROXY_CHUNK,
+                    topm: int = PROXY_TOPM):
+    """The proxy screen inside a live engine session ``ses``: the resident
+    tree gives the pass's queries and anchors (``NativeSession
+    .spr_collect``), the device screens them and re-scores each query's
+    top-M exactly in float64 (``spr_rescore``), and the engine applies the
+    proposals (``NativeSession.spr_apply``).  Only each query's best score
+    and row come back to the host; the decision rule is the host path's."""
+    strict, fails, threshold, placement_thresh = params
+    st = ScreenPass("proxy")
+    store = rt.kern.store
+    try:
+        with rt.tracer.span("spr.collect") as sp:
+            c = ses.spr_collect(root, placement_thresh)
+        st.collect_s = sp.seconds
+        K_total, N = len(c["q_node"]), len(c["a_node"])
+        if not K_total or not N:
+            return None, 0.0
+        stats.passes.append(st)
+        st.queries, st.anchors = K_total, N
+        with rt.tracer.span("spr.pack") as sp:
+            P = _stacked(store, c["a_vid"], c["a_len"], False, device)
+            mm = upload(np.asarray(rt.model.mut_matrix, np.float64)
+                        .reshape(1, 1, 16), device)
+            rf = upload(np.asarray(rt.refd.root_freqs, np.float64)
+                        .reshape(1, 1, 4), device)
+            Q = _stacked(store, c["q_vid"], c["q_len"], True, device)
+            prm = upload(np.stack(
+                [c["q_blen"], c["q_tip"].astype(np.float64),
+                 np.full(K_total, float(rt.dc.globalTotRate)),
+                 np.zeros(K_total)], axis=-1).reshape(K_total, 1, 4), device)
+            rescored = []
+
+            def rescore(ts, ti):
+                rescored.append(ti.numel())
+                return spr_rescore(P, Q.reshape(K_total, 1, -1), prm, mm, rf,
+                                   ts, ti, N)
+
+            events, pending = _queue_screen(
+                st, store, device, c["a_vid"], c["q_vid"], c["a_tin"],
+                c["q_lo"], c["q_hi"], c["q_excl"], chunk=chunk, topm=topm,
+                rescore=rescore)
+        st.pack_s = sp.seconds
+    finally:
+        ses.spr_release()
+
+    with rt.tracer.span("spr.decide") as sp:
+        best = np.full(K_total, -np.inf)
+        row = np.zeros(K_total, np.int64)
+        for s, e, b, r, done in pending:
+            if done is not None:
+                done.synchronize()
+            best[s:e] = b.numpy()
+            row[s:e] = r.numpy()
+        st.device_s = events.seconds()
+        st.q_nodes = c["q_node"].astype(np.int64)
+        st.q_best = best
+        st.q_base = c["q_base"]
+        proposals = _proposals(c["q_node"], c["a_node"], best, row,
+                               c["q_base"], placement_thresh)
+    st.decide_s = sp.seconds
+    rt.tracer.count("spr.rescored_device", sum(rescored))
+    rt.tracer.count("spr.native_passes")
+    return _apply(rt, root, proposals, params, counters, st, t0,
+                  f"(proxy, in the engine session; {sum(rescored)} exact "
+                  f"re-scores on {device.type}) ", ses=ses)
 
 
 def _screen_single_device_exact(rt, root: int, params, counters, t0, *,
@@ -634,6 +811,18 @@ def _screen_mesh(rt, root: int, params, counters, t0, *, mesh,
                   f"(mesh {mesh.shape}) ")
 
 
+def _session_screen(rt) -> bool:
+    """Whether a pass inside a live engine session runs there
+    (``_screen_session``): the proxy screen on the native kernels, for a
+    model without error rates or site rates, which the engine's packing of
+    the re-score's lists does not carry."""
+    model = rt.model
+    return (rt.kern.name == "native"
+            and not os.environ.get("MAPLE_SPR_EXACT")
+            and not model.using_error_rate
+            and model.site_rates is None)
+
+
 def device_topology_update(rt, root: int, params,
                            counters: Optional[SprCounters] = None, *,
                            device: torch.device, mesh=None,
@@ -653,16 +842,20 @@ def device_topology_update(rt, root: int, params,
     posteriors and stay on the host paths (the rounds loop gates
     them).
 
-    The pass reads and changes the host-side tree, so a live engine
-    session (``native/engine.py`` ``NativeSession``) is suspended before
-    it (span ``engine.suspend``: the resident tree comes back to
-    ``rt.tree``) and resumed after it on the pass's root (span
-    ``engine.resume``); a resume that cannot import leaves the scope
-    one-shot."""
+    Inside a live engine session (``native/engine.py`` ``NativeSession``)
+    the proxy screen runs in the session (``_screen_session``) where the
+    model has no error rates or site rates.  Every other pass reads and
+    changes the host-side tree, so a live session is suspended before it
+    (span ``engine.suspend``: the resident tree comes back to ``rt.tree``)
+    and resumed after it on the pass's root (span ``engine.resume``); a
+    resume that cannot import leaves the scope one-shot."""
     if counters is None:
         counters = SprCounters()
     with rt.tracer.span("spr.pass"):
         ses = rt.native_session
+        if ses is not None and mesh is None and _session_screen(rt):
+            return _screen_session(rt, ses, root, params, counters,
+                                   time.time(), device=torch.device(device))
         if ses is not None:
             with rt.tracer.span("engine.suspend"):
                 ses.suspend()

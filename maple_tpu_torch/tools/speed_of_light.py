@@ -174,6 +174,29 @@ def paired_work_model(Pstk, Cstk, lRef: int, evaluations: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def gathered_work_model(Pstk, Cflat, rows) -> dict:
+    """Counts of one gathered call (each query against its own candidate
+    rows, the SPR pass's re-score): the contributing entry pairs of the
+    gathered pairs at PAIR_FLOPS each over the peak of the tensors' float
+    type; the bytes once: both packed operands (int8 type and value, int32
+    end, three bool flags, six floats an entry), the rows (int64) and the
+    scores out."""
+    from ..ops.append_pairs import count_gathered_contributing_pairs
+    N, _, B1 = Pstk.shape
+    K, M = rows.shape
+    B2 = Cflat.shape[-1] // 16
+    pairs = count_gathered_contributing_pairs(Pstk, Cflat, rows)
+    item = Pstk.element_size()
+    ops = pairs * PAIR_FLOPS
+    nbytes = (9 + 6 * item) * (N * B1 + K * B2) + (8 + item) * K * M \
+        + item * (16 + 4 + 4 * K)
+    t_ops = ops / (F64_FLOPS if item == 8 else F32_FLOPS)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"contributing_pairs": pairs, "operations": ops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median time of ``fn()`` on the current CUDA stream, by events."""
     for _ in range(warmup):

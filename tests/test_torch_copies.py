@@ -18,9 +18,17 @@ every host module it needs, under the same name.  Each copy is listed in
 A change to maple_tpu that should reach the port fails here until the copy
 follows; a copy changed on purpose moves into ``changed`` (and CHANGES.md
 says so).
+
+The port's copy of the C++ engine, ``native/maple_native.cpp`` (built by
+``native/bridge.py``), is held the same way to the repository's
+``native/maple_native.cpp``, which maple_tpu builds: unit by unit
+(``CPP_MANIFEST``), a unit being a top-level definition of the file, inside
+its namespaces and ``extern "C"`` blocks, compared without comments and
+with runs of white space made one.
 """
 import ast
 import os
+import re
 
 import pytest
 
@@ -66,7 +74,9 @@ MANIFEST = {
     # back the MAT (replacements, local-reference mutations); a session
     # marks the tree mutated only where a phase changed it (not at close,
     # not for the read-only root search, not for an SPR pass that moved
-    # nothing); the transfers count into the run's tracer
+    # nothing); the transfers count into the run's tracer; the device
+    # proxy SPR pass collects and applies in the session (spr_collect,
+    # spr_release, spr_apply)
     "native/engine.py": dict(
         changed=["NativeSession.<body>", "NativeSession.__init__",
                  "NativeSession.close", "NativeSession.root_search",
@@ -74,7 +84,8 @@ MANIFEST = {
                  "_import_engine", "native_session_eligible",
                  "run_native_spr_parallel", "run_native_spr_pass"],
         added=["NativeSession._attach", "NativeSession.resume",
-               "NativeSession.suspend"]),
+               "NativeSession.suspend", "NativeSession.spr_collect",
+               "NativeSession.spr_release", "NativeSession.spr_apply"]),
     "ops/pack.py": ALL,
     # the run takes a device; --devicePlacement's branches are the port's
     # (build_initial_tree_device: the proxy placer over a mesh on the
@@ -93,9 +104,11 @@ MANIFEST = {
     # the device SPR screen runs on run.device; the rounds record spans
     "search/spr.py": dict(changed=["_parallel_update",
                                    "_run_spr_rounds_body"], added=[]),
-    # the port's own library in _build/, built under a lock and renamed
-    "native/bridge.py": dict(changed=["_LIB", "_build", "_load"],
-                             added=["_stale"]),
+    # the port's own library in _build/, built under a lock and renamed,
+    # from the port's own copy of the engine; the store packs lists in the
+    # pair kernel's stacked layout
+    "native/bridge.py": dict(changed=["_LIB", "_SRC", "_build", "_load"],
+                             added=["_stale", "NativeStore.pack_stacked"]),
     "parallel/batch_spr.py": dict(only=[
         "_euler_intervals", "_current_attachment_lk", "_collect_queries",
         "_collect_anchors"]),
@@ -187,6 +200,162 @@ def test_copy_matches_maple_tpu(rel):
             a, b = without_docstring(a), without_docstring(b)
         assert ast.dump(a) == ast.dump(b), \
             f"{rel}: {name} has drifted from maple_tpu's"
+
+
+# The port's copy of the C++ engine -> its twin, held as MANIFEST's
+# changed/added entries: the device SPR pass of a live session collects
+# its queries and anchors (engine_spr_collect, the handles it holds in
+# Engine::spr_held until engine_spr_release), the store packs lists in the
+# pair kernel's stacked layout (store_pack_stacked), and the engine applies
+# a host-sorted proposal list (engine_spr_apply) with the serial phase of
+# engine_spr_pass_parallel, which now calls it
+CPP_MANIFEST = {
+    ("maple_tpu_torch/native/maple_native.cpp", "native/maple_native.cpp"):
+        dict(changed=["struct Engine", "engine_spr_pass_parallel"],
+             added=["engine_spr_apply", "engine_spr_release",
+                    "engine_spr_collect", "store_pack_stacked"]),
+}
+
+
+def _without_comments(src):
+    out, i, n = [], 0, len(src)
+    while i < n:
+        if src.startswith("//", i):
+            j = src.find("\n", i)
+            i = n if j < 0 else j
+        elif src.startswith("/*", i):
+            i = src.index("*/", i + 2) + 2
+            out.append(" ")
+        elif src[i] in "\"'":
+            j = i + 1
+            while src[j] != src[i]:
+                j += 2 if src[j] == "\\" else 1
+            out.append(src[i:j + 1])
+            i = j + 1
+        else:
+            out.append(src[i])
+            i += 1
+    return "".join(out)
+
+
+_TRANSPARENT = re.compile(r'(namespace(\s+\w+)?|extern\s+"C")\s*$')
+
+
+def _cpp_name(text):
+    """A unit's name: a preprocessor line itself, ``struct X`` (class,
+    union, enum), a function's name, or the name a declaration defines."""
+    if text.startswith("#"):
+        return text
+    head = re.split(r"[{=;]", text, maxsplit=1)[0]
+    m = re.match(r"\s*(struct|class|union|enum)\s+(\w+)", head)
+    if m:
+        return f"{m.group(1)} {m.group(2)}"
+    m = re.search(r"([\w:~]+)\s*\(", head)
+    if m:
+        return m.group(1)
+    return re.findall(r"[\w:]+", head)[-1]
+
+
+def cpp_units(path):
+    """name -> text of every top-level unit of a C++ source: a preprocessor
+    line, or a declaration or definition up to its ``;`` or closing brace
+    (``namespace`` and ``extern "C"`` blocks are looked into).  A name
+    that comes again is numbered (``name#2``)."""
+    with open(os.path.join(ROOT, path)) as f:
+        code = _without_comments(f.read())
+    units, cur, depth, i, n = {}, [], 0, 0, len(code)
+
+    def close():
+        text = " ".join("".join(cur).split())
+        cur.clear()
+        if text:
+            name = key = _cpp_name(text)
+            k = 2
+            while key in units:
+                key, k = f"{name}#{k}", k + 1
+            units[key] = text
+
+    while i < n:
+        c = code[i]
+        if depth == 0 and c == "#" and not "".join(cur).strip():
+            j = i
+            while True:   # a directive ends at a newline not escaped
+                j = code.find("\n", j)
+                if j < 0 or code[j - 1] != "\\":
+                    break
+                j += 1
+            j = n if j < 0 else j
+            cur.append(code[i:j])
+            close()
+            i = j
+            continue
+        if c == "{" and depth == 0 \
+                and _TRANSPARENT.match("".join(cur).strip()):
+            cur.clear()
+        elif c == "}" and depth == 0:
+            pass                       # the end of a namespace or extern
+        elif c == "{":
+            depth += 1
+            cur.append(c)
+        elif c == "}":
+            depth -= 1
+            cur.append(c)
+            if depth == 0:
+                j = i + 1
+                while j < n and code[j].isspace():
+                    j += 1
+                if j < n and code[j] == ";":
+                    cur.append(";")
+                    i = j
+                close()
+        elif c == ";" and depth == 0:
+            cur.append(c)
+            close()
+        else:
+            cur.append(c)
+        i += 1
+    close()
+    return units
+
+
+@pytest.mark.parametrize("pair", list(CPP_MANIFEST),
+                         ids=[p[0] for p in CPP_MANIFEST])
+def test_cpp_copy_matches_its_twin(pair):
+    port_path, twin_path = pair
+    held = CPP_MANIFEST[pair]
+    port, twin = cpp_units(port_path), cpp_units(twin_path)
+    assert len(twin) > 200, "the splitter found too few units"
+    changed, added = set(held["changed"]), set(held["added"])
+    missing = set(twin) - set(port)
+    assert not missing, f"{port_path}: the copy lacks {sorted(missing)}"
+    extra = set(port) - set(twin)
+    assert extra == added, \
+        f"{port_path}: units only in the copy {sorted(extra)}, listed " \
+        f"{sorted(added)}"
+    assert changed <= set(twin), f"{port_path}: stale names in 'changed'"
+    same = sorted(n for n in changed if port[n] == twin[n])
+    assert not same, f"{port_path}: {same} equal their twins: unlist them"
+    drifted = sorted(n for n in set(twin) - changed if port[n] != twin[n])
+    assert not drifted, f"{port_path}: {drifted} have drifted from " \
+        f"{twin_path}"
+
+
+def test_cpp_units_split_a_file(tmp_path):
+    """The splitter on a small file: directives, namespaces and extern
+    blocks looked into, structs, functions and declarations by name,
+    comments and spacing free, a repeated name numbered."""
+    src = tmp_path / "a.cpp"
+    src.write_text(
+        '#include <vector>\n// a comment with { and "\n'
+        'namespace {\nconstexpr int A = 1;\nstruct S {\n  int f() {'
+        ' return 1; }\n};\nstatic int g(int x) {\n  /* } */ return x'
+        ' + A; }\n}  // namespace\nextern "C" {\nint h(S *s) { return '
+        's->f(); }\nint h(int a);\n#define X(v) \\\n  (v)\n}\n')
+    units = cpp_units(str(src))
+    assert list(units) == ["#include <vector>", "A", "struct S", "g", "h",
+                           "h#2", "#define X(v) \\ (v)"]
+    assert units["g"] == "static int g(int x) { return x + A; }"
+    assert units["struct S"] == "struct S { int f() { return 1; } };"
 
 
 def test_manifest_covers_every_copied_module():

@@ -2,13 +2,17 @@
 ``NativeSession``), against the one-shot engine phases it replaces.
 
 Under ``--deviceTopology`` each stage (post-placement, root search,
-re-root, SPR rounds) keeps the tree resident in one C++ engine, and the
-device SPR pass suspends the session around itself
-(``parallel/batch_spr.py`` ``device_topology_update``).  With
-``native_session_eligible`` patched to False every engine phase imports
-and exports the tree on its own, as before sessions reached these runs.
-Both must give the same tree: the same topology, names and lengths, the
-same log-likelihood and the same applied SPR moves.  A session marks the
+re-root, SPR rounds) keeps the tree resident in one C++ engine.  The
+device proxy SPR pass runs in the session (``parallel/batch_spr.py``
+``_screen_session``: collected and applied by the engine, re-scored by the
+pair kernel's gathered entry); a pass that reads the host tree (the
+exhaustive screen, rate variation) suspends the session around itself
+(``device_topology_update``).  With ``native_session_eligible`` patched to
+False every engine phase imports and exports the tree on its own, and the
+pass runs on the host tree (collected in Python, re-scored by
+``store.append_grid``, applied by the copied ``apply_spr_moves``).  Both
+must give the same tree: the same topology, names and lengths, the same
+log-likelihood and the same applied SPR moves.  A session marks the
 tree mutated only where a phase changed it; host-SPR runs, which held
 sessions before, give the same tree under that rule as with the
 recalculation gate off, as with a bump at every close, root search and
@@ -106,8 +110,8 @@ def armed(tree) -> bool:
     ("b1000", True, "proxy"), ("sub80", True, "exact")])
 def test_session_tree_equals_one_shot(tmp_path, monkeypatch, data,
                                       device_placement, screen):
-    """The proxy screen, and the exhaustive one (``MAPLE_SPR_EXACT``)
-    suspended inside a session the same way."""
+    """The proxy screen in the session, and the exhaustive one
+    (``MAPLE_SPR_EXACT``) with the session suspended around it."""
     if screen == "exact":
         monkeypatch.setenv("MAPLE_SPR_EXACT", "1")
     flags = flags_for(tmp_path, data, device_placement)
@@ -118,11 +122,14 @@ def test_session_tree_equals_one_shot(tmp_path, monkeypatch, data,
     assert abs(lk_s - lk_o) <= TOL, (lk_s, lk_o)
     for name in ("spr.applied", "spr.proposals"):
         assert ses.tracer.counter(name) == one.tracer.counter(name), name
-    assert ses.tracer.calls("spr.pass") == one.tracer.calls("spr.pass") > 0
+    passes = ses.tracer.calls("spr.pass")
+    assert passes == one.tracer.calls("spr.pass") > 0
     assert ses.tracer.counter("engine.sessions") > 0
-    assert ses.tracer.counter("engine.suspends") \
-        == ses.tracer.calls("spr.pass")
+    in_session = 0 if screen == "exact" else passes
+    assert ses.tracer.counter("spr.native_passes") == in_session
+    assert ses.tracer.counter("engine.suspends") == passes - in_session
     assert one.tracer.counter("engine.sessions") == 0
+    assert one.tracer.counter("spr.native_passes") == 0
     if data == "b1000":
         assert ses.tracer.counter("spr.applied") > 0
 
@@ -187,16 +194,15 @@ def test_one_shot_spr_pass_marks_moves(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("data,count,one_shot,fold", [
-    ("sub80", 16, 67, 4), ("b300", 12, 60, 5), ("b1000", 12, 62, 5)])
+    ("sub80", 12, 67, 5), ("b300", 8, 60, 7), ("b1000", 8, 62, 7)])
 def test_session_counters(tmp_path, monkeypatch, data, count, one_shot,
                           fold):
-    """One suspend a device pass, and ``count`` transfers a tree: two a
-    session (open, close: post-placement, root search, the re-root on
-    sub80, the rounds), two a suspended pass (two passes), and two for
-    each one-shot recalculation outside a session (the counting one
-    before post-placement's session; on sub80 also the one after the
-    re-root).  One-shot phases take ``one_shot``, ``fold`` times as many
-    or more."""
+    """The device passes run in the session: no suspend, and ``count``
+    transfers a tree: two a session (open, close: post-placement, root
+    search, the re-root on sub80, the rounds) and two for each one-shot
+    recalculation outside a session (the counting one before
+    post-placement's session; on sub80 also the one after the re-root).
+    One-shot phases take ``one_shot``, ``fold`` times as many or more."""
     flags = flags_for(tmp_path, data, True)
     run, _, _ = run_tree(tmp_path, monkeypatch, flags, "session")
     one, _, _ = run_tree(tmp_path, monkeypatch, flags, "oneshot",
@@ -204,8 +210,9 @@ def test_session_counters(tmp_path, monkeypatch, data, count, one_shot,
     tr = run.tracer
     passes = tr.calls("spr.pass")
     assert passes > 0
-    assert tr.counter("engine.suspends") == passes
-    assert tr.calls("engine.suspend") == tr.calls("engine.resume") == passes
+    assert tr.counter("spr.native_passes") == passes
+    assert tr.counter("engine.suspends") == 0
+    assert tr.calls("engine.suspend") == tr.calls("engine.resume") == 0
     transfers = tr.counter("engine.transfers")
     one_transfers = one.tracer.counter("engine.transfers")
     assert (transfers, one_transfers) == (count, one_shot)
@@ -217,8 +224,9 @@ def test_session_counters(tmp_path, monkeypatch, data, count, one_shot,
 
 def test_failed_resume_goes_on_one_shot(tmp_path, monkeypatch):
     """A resume whose import finds the transfer unsafe leaves the rest of
-    the rounds one-shot, with the same tree."""
-    flags = flags_for(tmp_path, "b1000", True)
+    the rounds one-shot, with the same tree.  Rate variation keeps the
+    device pass on the host tree, so the session is suspended around it."""
+    flags = dict(flags_for(tmp_path, "b1000", True), rateVariation=True)
     real_import, real_resume = E._import_engine, E.NativeSession.resume
     failing = []
 
