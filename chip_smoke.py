@@ -16,10 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      the pair kernel's launch count must be positive, the tree and a finite
      LK must be written, and neither jax nor maple_tpu may be loaded;
   4. the pair kernel (the merge walk) against its plain PyTorch version
-     and against the grid kernel (the yardstick, on no path) on the card,
-     on the anchor rows of phase 3's own pool (tiled to n_prefix 1024 and
-     8192), K=64 real queries with B2=128 entries, error model off and
-     on, with CUDA-event times of all three and the kernel's bound; then
+     on the card, on the anchor rows of phase 3's own pool (tiled to
+     n_prefix 1024 and 8192), K=64 real queries with B2=128 entries, error
+     model off and on, with CUDA-event times of both and the kernel's
+     bound; then
      the same checks on the pool as the run left it (its prefix with the
      rows never written, all zero, and the invalidated ones) against the
      queries packed at B2 = 128, 256 and 512, on K = 1 and K = 25 against
@@ -51,7 +51,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   8. the screen chunk (pair kernel, masks, top-1) against its plain
      version on the card, on phase 7's first full chunk: the same -inf
      rows, top-1 scores within 1e-9 (f64) and 1e-4 (f32), CUDA-event
-     times of both and of the same chunk on the grid kernel;
+     times of both;
   9. the main path: ``--devicePlacement`` on b3000 with default flags and
      no branch variable set, the whole pipeline: the proxy branch must have
      run (steps > 0, native kernels), all 3,000 placed, a finite LK;
@@ -158,8 +158,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 The line before the last is the card's name and power limit, the one
 before it the kernel report, and the last line the result.  In the
 kernel report, ``ms`` is the merge-walk kernel's time (one wrapper call:
-two CUDA kernels) and ``grid_ms`` the grid kernel's on the same operands
-in the same run; ``launches_by_path`` holds the pair kernel's launches on
+two CUDA kernels); ``launches_by_path`` holds the pair kernel's launches on
 each path (placement and SPR of phase 6's exhaustive run, the legacy run
 of phase 12, the mesh run of phase 15), each counted from 0 within its own
 run; ``launches`` is their sum; ``launches_by_run`` holds each CLI run's
@@ -348,8 +347,8 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"\d+(compact_rows|append_walk|append_pairs_kernel)"
-                          r"I([fd])(?:Lb([01])E)?", name)
+            k = re.search(r"\d+(compact_rows|append_walk_gathered|"
+                          r"append_walk)I([fd])(?:Lb([01])E)?", name)
             if k:
                 name = f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}" \
                     + (f", uer={k.group(3)}>" if k.group(3) else ">")
@@ -562,10 +561,9 @@ def kernel_inputs(run, seed=7):
 
 def compare_kernels(torch, args64, uer, what, plain_reps=0):
     """One input set (float64 tensors on the card) through the plain
-    version, the merge-walk kernel and the grid kernel: float64 within
-    F64_REL of plain, float32 within F32_REL, -inf in the same cells; the
-    walk's float32 scores within F32_REL of the grid's.  Times by CUDA
-    events: the medians of 20 (walk) and 10 (grid) calls; the plain
+    version and the merge-walk kernel: float64 within F64_REL of plain,
+    float32 within F32_REL, -inf in the same cells.  Times by CUDA events:
+    the medians of 20 (float32) and 10 (float64) calls; the plain
     version's float32 median of ``plain_reps`` calls, or with 0 the one
     float64 call that made the reference."""
     from maple_tpu_torch.ops import append_pairs as AP
@@ -576,24 +574,15 @@ def compare_kernels(torch, args64, uer, what, plain_reps=0):
     t1.record()
     k64 = AP.append_scores_prestacked(*args64, uer=uer)
     k32 = AP.append_scores_prestacked(*args32, uer=uer)
-    g64 = AP.append_scores_prestacked_grid(*args64, uer=uer)
-    g32 = AP.append_scores_prestacked_grid(*args32, uer=uer)
     torch.cuda.synchronize()
     plain_ms = t0.elapsed_time(t1)
-    ref, k64, k32, g64, g32 = (x.double().cpu().numpy()
-                               for x in (ref, k64, k32, g64, g32))
+    ref, k64, k32 = (x.double().cpu().numpy() for x in (ref, k64, k32))
     abs64 = same_inf_and_close(ref, k64, F64_REL, f"{what}: walk f64")
     abs32 = same_inf_and_close(ref, k32, F32_REL, f"{what}: walk f32")
-    same_inf_and_close(ref, g64, F64_REL, f"{what}: grid f64")
-    same_inf_and_close(ref, g32, F32_REL, f"{what}: grid f32")
-    d_grid = same_inf_and_close(g32, k32, F32_REL,
-                                f"{what}: walk f32 against grid f32")
     ms = median_ms(lambda: AP.append_scores_prestacked(*args32, uer=uer),
                    reps=20)
     ms64 = median_ms(lambda: AP.append_scores_prestacked(*args64, uer=uer),
                      reps=10)
-    grid_ms = median_ms(lambda: AP.append_scores_prestacked_grid(
-        *args32, uer=uer), reps=10)
     if plain_reps:
         plain_ms = median_ms(lambda: AP.append_scores_prestacked_plain(
             *args32, uer=uer), reps=plain_reps, warmup=1)
@@ -603,10 +592,9 @@ def compare_kernels(torch, args64, uer, what, plain_reps=0):
         Cflat.shape[2] // 16
     print(f"[kernel] {what}: K={K} N={N} B1={B1} B2={B2} uer={int(uer)}: "
           f"walk f64 max abs err {abs64:.3e} (<= {F64_REL} relative), f32 "
-          f"{abs32:.3e} (<= {F32_REL} relative), walk f32 against grid f32 "
-          f"max |d| {d_grid:.3e}, -inf cells {int(np.isneginf(ref).sum())}, "
-          f"0 mismatched; walk f32 {ms:.4f} ms, walk f64 {ms64:.4f} ms, "
-          f"grid f32 {grid_ms:.4f} ms, plain "
+          f"{abs32:.3e} (<= {F32_REL} relative), -inf cells "
+          f"{int(np.isneginf(ref).sum())}, 0 mismatched; walk f32 "
+          f"{ms:.4f} ms, walk f64 {ms64:.4f} ms, plain "
           f"{'f32' if plain_reps else 'f64, one call'} {plain_ms:.4f} ms "
           f"(CUDA events)")
     print(f"[kernel] {what}: {work['contributing_pairs']} contributing "
@@ -614,11 +602,9 @@ def compare_kernels(torch, args64, uer, what, plain_reps=0):
           f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
           f"({work['bytes']} bytes; the operands' own layout moves "
           f"{work['layout_bytes']}: {bound['layout_bound_ms']:.5f} ms); "
-          f"walk {ms / bound['bound_ms']:.1f}x above the bound, grid "
-          f"{grid_ms / bound['bound_ms']:.1f}x")
+          f"walk {ms / bound['bound_ms']:.1f}x above the bound")
     return {"shape": {"K": K, "N": N, "B1": B1, "B2": B2, "uer": int(uer)},
-            "ms": ms, "grid_ms": grid_ms, "plain_ms": plain_ms, **bound,
-            "max_abs_err": abs32, "walk_vs_grid_max_abs": d_grid,
+            "ms": ms, "plain_ms": plain_ms, **bound, "max_abs_err": abs32,
             "contributing_pairs": work["contributing_pairs"]}
 
 
@@ -1236,13 +1222,6 @@ def phase_screen_chunk(torch, captured):
         return BS.screen_chunk(pool, valid, a_tin, Cflat, prm, q_lo, q_hi,
                                excl, mm, rf, n_prefix=n_prefix, uer=uer)
 
-    def grid(pool, Cflat, prm, mm, rf):   # the same chunk on the yardstick
-        scores = AP.append_scores_prestacked_grid(
-            pool[:n_prefix], Cflat, prm, mm, rf, uer=uer)
-        BS._mask_trivial_targets(scores, valid[:n_prefix],
-                                 a_tin[:n_prefix], q_lo, q_hi, excl)
-        return torch.topk(scores, 1, dim=1)
-
     f32 = (pool, Cflat, prm, mm, rf)
     f64 = tuple(x.double() for x in f32)
     ref, k64, k32 = (fn(*a)[0].double().cpu().numpy()[:, 0] for fn, a in
@@ -1259,11 +1238,7 @@ def phase_screen_chunk(torch, captured):
     rel32 = float((abs32 / scale).max())
     check(rel64 <= F64_REL, f"screen chunk: float64 rel err {rel64}")
     check(rel32 <= F32_REL, f"screen chunk: float32 rel err {rel32}")
-    g32 = grid(*f32)[0].double().cpu().numpy()[:, 0]
-    d_grid = same_inf_and_close(g32, k32, F32_REL,
-                                "screen chunk: walk f32 against grid f32")
     ms = median_ms(lambda: kernel(*f32), reps=20)
-    grid_ms = median_ms(lambda: grid(*f32), reps=10)
     plain_ms = median_ms(lambda: plain(*f32), reps=3, warmup=1)
     bound, _ = pair_bound(pool[:n_prefix].contiguous(), Cflat)
     print(f"[chunk] K={Cflat.shape[0]} queries, n_prefix {n_prefix}, "
@@ -1271,11 +1246,10 @@ def phase_screen_chunk(torch, captured):
           f"top-1 f64 rel err {rel64:.3e} (<= {F64_REL}), f32 rel err "
           f"{rel32:.3e} (<= {F32_REL}), f32 max abs err {abs32.max():.3e}, "
           f"-inf rows {int(inf.sum())}; screen_chunk kernel f32 {ms:.4f} "
-          f"ms, the same chunk on the grid kernel {grid_ms:.4f} ms (top-1 "
-          f"max |d| {d_grid:.3e}), plain f32 {plain_ms:.4f} ms (median, "
+          f"ms, plain f32 {plain_ms:.4f} ms (median, "
           f"CUDA events); bound {bound['bound_ms']:.5f} ms by "
           f"{bound['bound_by']}")
-    return {"max_abs_err": float(abs32.max()), "ms": ms, "grid_ms": grid_ms,
+    return {"max_abs_err": float(abs32.max()), "ms": ms,
             "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
@@ -1588,32 +1562,24 @@ def phase_legacy(torch, b3000):
     same_inf_and_close(ref, k64, F64_REL, "legacy launch, float64 kernel")
     worst = same_inf_and_close(ref, k32, F32_REL,
                                "legacy launch, float32 kernel")
-    g32 = AP.append_scores_prestacked_grid(*args32, uer=uer) \
-        .double().cpu().numpy()
-    d_grid = same_inf_and_close(g32, k32, F32_REL,
-                                "legacy launch, walk f32 against grid f32")
     ms = median_ms(lambda: AP.append_scores_prestacked(
         *args32, uer=uer), reps=20)
-    grid_ms = median_ms(lambda: AP.append_scores_prestacked_grid(
-        *args32, uer=uer), reps=10)
     plain_ms = median_ms(lambda: AP.append_scores_prestacked_plain(
         *args32, uer=uer), reps=5, warmup=1)
     Pstk, Cflat = args32[:2]
     bound, work = pair_bound(Pstk, Cflat)
     print(f"[legacy] last launch K={Cflat.shape[0]} N={Pstk.shape[0]} "
           f"B1={Pstk.shape[2]} B2={Cflat.shape[2] // 16} uer={int(uer)}: "
-          f"f32 max abs err {worst:.3e} (<= {F32_REL} relative), against "
-          f"the grid kernel max |d| {d_grid:.3e}; kernel {ms:.4f} ms, grid "
-          f"kernel {grid_ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA "
-          f"events); "
+          f"f32 max abs err {worst:.3e} (<= {F32_REL} relative); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA events); "
           f"{work['contributing_pairs']} contributing pairs, bound "
           f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} (the kernel's "
           f"own layout: {bound['layout_bound_ms']:.5f} ms)")
     stage = {"lk": lk, "minors": run.stats.num_minors_found,
              "final_lk": final_lk}
     return launches, run_label(argv, **env), {
-        "max_abs_err": worst, "ms": ms, "grid_ms": grid_ms,
-        "plain_ms": plain_ms, **bound, "library_ms": None}, \
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound,
+        "library_ms": None}, \
         (args32, uer), stage
 
 
@@ -1822,18 +1788,6 @@ def mesh_tiles(torch, mesh, pool_g, q_g, blen, dm, what):
         print(f"[mesh] {name} + host_fetch, tile ({K}, {N}): {ms:.4f} ms "
               f"(median of 10, CUDA events); bound "
               f"{out[name]['bound_ms']:.5f} ms by {out[name]['bound_by']}")
-    # the same mesh call with the grid kernel in the pair kernel's place
-    # (this script's doing, for the time beside it: no mesh function
-    # reaches the grid kernel)
-    TM.append_scores_prestacked = AP.append_scores_prestacked_grid
-    try:
-        grid_ms = median_ms(lambda: TM.host_fetch(TM.placement_scores_pallas(
-            mesh, pool_g, q_g, blen, dm)), reps=10)
-    finally:
-        TM.append_scores_prestacked = AP.append_scores_prestacked
-    out["placement_scores_pallas"]["grid_ms"] = grid_ms
-    print(f"[mesh] placement_scores_pallas + host_fetch with the grid "
-          f"kernel in its place: {grid_ms:.4f} ms")
     return out
 
 
@@ -2478,9 +2432,9 @@ def phase_speed_of_light(torch):
     """Phase 16."""
     from maple_tpu_torch.tools import speed_of_light as SOL
     rows = SOL.run_config(8192, 64, 64, 64, 5, torch.device("cuda", 0))
-    check([r["kernel"] for r in rows] == ["k1-cuda", "k1-grid", "k8-torch"]
+    check([r["kernel"] for r in rows] == ["k1-cuda", "k8-torch"]
           and all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows),
-          "speed_of_light: not its three rows")
+          "speed_of_light: not its two rows")
     return rows
 
 
@@ -2744,7 +2698,6 @@ def main(argv):
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "launches_by_run": runs,
         "cuda_kernels_a_call": kern["split"]["cuda_kernels_a_call"],
-        "yardstick": "maple_tpu_torch/csrc/append_pairs_grid.cu (grid_ms)",
         "resources": resources, **kern, "spr_screen_chunk": chunk,
         "spr_rescore_gathered": gathered,
         "legacy_batch": legacy, "interval_algebra": k8,

@@ -18,9 +18,9 @@
 // What bounds the function on this card.  About one entry pair in a
 // thousand of the B1 x B2 grid contributes; a kernel that visits the grid
 // (the TPU kernel's design, where a masked sum over 128 candidate lanes
-// costs no branch; kept as the yardstick in append_pairs_grid.cu) spends
-// its time on empty cells and on candidate reads that are 16 * B1 words
-// apart from thread to thread and are repeated for every query.  The
+// costs no branch) spends its time on empty cells and on candidate reads
+// that are 16 * B1 words apart from thread to thread and are repeated for
+// every query.  The
 // function itself needs the packed lists once (bytes) and about 100
 // operations a contributing pair.
 //

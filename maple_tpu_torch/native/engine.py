@@ -14,19 +14,36 @@ Placement covers the de-novo path including rate variation, HnZ, and
 active error models; time trees and deeper-long-branch search fall
 back to the Python loop (callers gate on `native_engine_supported`).
 The module also hosts whole-phase helpers — run_native_spr_pass,
-run_native_recalculate, run_native_tree_lk, run_native_blen_sweep —
-that import the session tree into a C++ Engine, run the phase natively,
-and export the result back.
+run_native_recalculate, run_native_tree_lk, run_native_blen_sweep, ... —
+that run the phase through a `NativeSession` method: the live session's,
+or, where none is live, a one-shot engine's that imports the tree and
+hands it back.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes as C
-import os
 
 import numpy as np
 
 from ..core import genomelist as gl
 from ..core.backend import NV, NativeBackend
+
+
+def _ptr(a):
+    """A ctypes pointer to the data of numpy array ``a``."""
+    return a.ctypes.data_as(C.POINTER(np.ctypeslib.as_ctypes_type(a.dtype)))
+
+
+def _export_nodes(lib, h, n):
+    """The engine's per-node arrays (engine_export_nodes): up, child 0,
+    child 1, dist, name, nDesc, dirty, the four vector handles (probVect,
+    up-right, up-left, total-up), minor-sequence and mutation counts."""
+    i32, i64 = np.int32, np.int64
+    out = [np.empty(n, t) for t in (i32, i32, i32, np.float64, i32, i32,
+                                    np.uint8, i64, i64, i64, i64, i32, i32)]
+    lib.engine_export_nodes(h, *map(_ptr, out))
+    return out
 
 
 def native_engine_supported(run) -> bool:
@@ -324,30 +341,8 @@ class NativePlacementEngine:
         from ..runtime.tree import PhyloTree
         lib, h = self.lib, self.h
         n = lib.engine_node_count(h)
-        i32, i64, f64, u8 = np.int32, np.int64, np.float64, np.uint8
-        up = np.empty(n, i32)
-        c0 = np.empty(n, i32)
-        c1 = np.empty(n, i32)
-        dist = np.empty(n, f64)
-        name = np.empty(n, i32)
-        ndesc = np.empty(n, i32)
-        dirty = np.empty(n, u8)
-        pv = np.empty(n, i64)
-        upr = np.empty(n, i64)
-        upl = np.empty(n, i64)
-        totup = np.empty(n, i64)
-        n_minor = np.empty(n, i32)
-        n_muts = np.empty(n, i32)
-
-        def P(a, t):
-            return a.ctypes.data_as(C.POINTER(t))
-
-        lib.engine_export_nodes(
-            h, P(up, C.c_int32), P(c0, C.c_int32), P(c1, C.c_int32),
-            P(dist, C.c_double), P(name, C.c_int32), P(ndesc, C.c_int32),
-            P(dirty, C.c_uint8), P(pv, C.c_int64), P(upr, C.c_int64),
-            P(upl, C.c_int64), P(totup, C.c_int64), P(n_minor, C.c_int32),
-            P(n_muts, C.c_int32))
+        up, c0, c1, dist, name, _, _, _, _, _, _, n_minor, _ = \
+            _export_nodes(lib, h, n)
         tree = PhyloTree()
         tree.up = [u if u >= 0 else None for u in up.tolist()]
         tree.children = [[] if a < 0 else [a, b]
@@ -356,8 +351,8 @@ class NativePlacementEngine:
         tree.name = [m if m >= 0 else "" for m in name.tolist()]
         tree.minorSequences = [[] for _ in range(n)]
         for node in np.nonzero(n_minor)[0].tolist():
-            buf = np.empty(int(n_minor[node]), i32)
-            lib.engine_export_minor(h, node, P(buf, C.c_int32))
+            buf = np.empty(int(n_minor[node]), np.int32)
+            lib.engine_export_minor(h, node, _ptr(buf))
             tree.minorSequences[node] = buf.tolist()
         return tree, int(lib.engine_root(h))
 
@@ -369,30 +364,8 @@ class NativePlacementEngine:
         self.rt.mark_mutated()
         lib, h, store = self.lib, self.h, self.store
         n = lib.engine_node_count(h)
-        i32, i64, f64, u8 = np.int32, np.int64, np.float64, np.uint8
-        up = np.empty(n, i32)
-        c0 = np.empty(n, i32)
-        c1 = np.empty(n, i32)
-        dist = np.empty(n, f64)
-        name = np.empty(n, i32)
-        ndesc = np.empty(n, i32)
-        dirty = np.empty(n, u8)
-        pv = np.empty(n, i64)
-        upr = np.empty(n, i64)
-        upl = np.empty(n, i64)
-        totup = np.empty(n, i64)
-        n_minor = np.empty(n, i32)
-        n_muts = np.empty(n, i32)
-
-        def P(a, t):
-            return a.ctypes.data_as(C.POINTER(t))
-
-        lib.engine_export_nodes(
-            h, P(up, C.c_int32), P(c0, C.c_int32), P(c1, C.c_int32),
-            P(dist, C.c_double), P(name, C.c_int32), P(ndesc, C.c_int32),
-            P(dirty, C.c_uint8), P(pv, C.c_int64), P(upr, C.c_int64),
-            P(upl, C.c_int64), P(totup, C.c_int64), P(n_minor, C.c_int32),
-            P(n_muts, C.c_int32))
+        (up, c0, c1, dist, name, ndesc, dirty, pv, upr, upl, totup, n_minor,
+         n_muts) = _export_nodes(lib, h, n)
 
         tree = self.rt.tree
         up_l = up.tolist()
@@ -408,18 +381,18 @@ class NativePlacementEngine:
         tree.dirty = [bool(x) for x in dirty.tolist()]
         tree.replacements = [0] * n
         if tree.use_hnz:
-            nd0 = np.empty(n, i32)
-            lib.engine_export_ndesc0(h, P(nd0, C.c_int32))
+            nd0 = np.empty(n, np.int32)
+            lib.engine_export_ndesc0(h, _ptr(nd0))
             tree.nDesc0 = nd0.tolist()
         tree.minorSequences = [[] for _ in range(n)]
         tree.mutations = [[] for _ in range(n)]
         for node in np.nonzero(n_minor)[0].tolist():
-            buf = np.empty(int(n_minor[node]), i32)
-            lib.engine_export_minor(h, node, P(buf, C.c_int32))
+            buf = np.empty(int(n_minor[node]), np.int32)
+            lib.engine_export_minor(h, node, _ptr(buf))
             tree.minorSequences[node] = buf.tolist()
         for node in np.nonzero(n_muts)[0].tolist():
-            buf = np.empty(int(n_muts[node]) * 3, i32)
-            lib.engine_export_muts(h, node, P(buf, C.c_int32))
+            buf = np.empty(int(n_muts[node]) * 3, np.int32)
+            lib.engine_export_muts(h, node, _ptr(buf))
             flat = buf.tolist()
             tree.mutations[node] = [tuple(flat[k:k + 3])
                                     for k in range(0, len(flat), 3)]
@@ -432,8 +405,8 @@ class NativePlacementEngine:
         tree.probVectUpLeft = wrap(upl)
         tree.probVectTotUp = wrap(totup)
 
-        sbuf = np.zeros(9, f64)
-        lib.engine_stats(h, P(sbuf, C.c_double))
+        sbuf = np.zeros(9, np.float64)
+        lib.engine_stats(h, _ptr(sbuf))
         stats.dfs_visits = int(sbuf[7])
         stats.fine_evals = int(sbuf[8])
         stats.num_minors_found += int(sbuf[0])
@@ -467,51 +440,22 @@ def native_spr_supported(rt, abayes_on, network_output, check_each_spr):
 def run_native_spr_pass(rt, root, strict_stop, allowed_fails,
                         threshold_log_lk, threshold_topology_placement):
     """Run one full startTopologyUpdates sweep inside the C++ engine
-    (native/maple_native.cpp engine_spr_pass).  The session tree's vector
-    handles transfer ownership to the engine and come back re-wrapped.
-    Returns (new_root_or_None, improvement, topo_updates, blen_updates)
-    or None if the tree state is unsuitable (caller falls back)."""
+    (native/maple_native.cpp engine_spr_pass): the live session's, or a
+    one-shot engine that takes the tree's vector handles and hands them
+    back re-wrapped with the MAT.  Returns (new_root_or_None, improvement,
+    topo_updates, blen_updates) or None if the tree state is unsuitable
+    (caller falls back)."""
     ses = rt.native_session
     if ses is not None:
         return ses.spr_pass(strict_stop, allowed_fails, threshold_log_lk,
                             threshold_topology_placement)
-    lib = rt.kern.store.lib
-    h = _import_engine(rt, root, transfer=True)
-    if h is None:
-        return None
-    dc = rt.dc
-    lib.engine_set_spr_params(
-        h, dc.thresholdLogLKoptimizationTopology,
-        threshold_topology_placement, rt.cfg.defaultBLen,
-        rt.cfg.maxReplacements)
-    if rt.cfg.topologyBudget:
-        lib.engine_set_spr_budget(h, rt.cfg.topologyBudget)
-    new_root = np.zeros(1, np.int32)
-    improvement = np.zeros(1, np.float64)
-    topo = np.zeros(1, np.int64)
-    blen = np.zeros(1, np.int64)
-
-    def P(a, t):
-        return a.ctypes.data_as(C.POINTER(t))
-
-    rc = lib.engine_spr_pass(h, 1 if strict_stop else 0, allowed_fails,
-                             threshold_log_lk, P(new_root, C.c_int32),
-                             P(improvement, C.c_double),
-                             topo.ctypes.data_as(C.POINTER(C.c_long)),
-                             blen.ctypes.data_as(C.POINTER(C.c_long)))
-    if rc != 0:
-        msg = lib.engine_error(h).decode()
-        lib.engine_free(h)
-        raise RuntimeError(f"native SPR engine: {msg}")
-    # a pass that moved nothing left every vector as it was
-    _export_engine(rt, h, mutated=bool(topo[0] or blen[0]), mat=True)
-    sbuf = np.zeros(9, np.float64)
-    lib.engine_stats(h, P(sbuf, C.c_double))
-    rt.num_refs += int(sbuf[6])
-    nr = int(new_root[0])
-    lib.engine_free(h)
-    return (nr if nr >= 0 else None, float(improvement[0]),
-            int(topo[0]), int(blen[0]))
+    with NativeSession._one_shot(rt, root, spr_budget=True) as one:
+        if one is None:
+            return None
+        res = one.spr_pass(strict_stop, allowed_fails, threshold_log_lk,
+                           threshold_topology_placement)
+        one.close()  # the pass marked the tree mutated where it moved it
+        return res
 
 
 def run_native_spr_parallel(rt, root, num_cores, strict_stop, allowed_fails,
@@ -533,60 +477,16 @@ def run_native_spr_parallel(rt, root, num_cores, strict_stop, allowed_fails,
     if rt.model.using_error_rate:
         # tag-registry writes during worker merges would race
         return None
-    store = rt.kern.store
-    lib = store.lib
-    h = _import_engine(rt, root, transfer=True)
-    if h is None:
-        return None
-    dc = rt.dc
-    lib.engine_set_spr_params(
-        h, dc.thresholdLogLKoptimizationTopology,
-        threshold_topology_placement, rt.cfg.defaultBLen,
-        rt.cfg.maxReplacements)
-    if rt.cfg.topologyBudget:
-        lib.engine_set_spr_budget(h, rt.cfg.topologyBudget)
-    new_root = np.zeros(1, np.int32)
-    improvement = np.zeros(1, np.float64)
-    topo = np.zeros(1, np.int64)
-    blen = np.zeros(1, np.int64)
-    searched = np.zeros(num_cores, np.int64)
-    proposed = np.zeros(num_cores, np.int64)
-    assigned = np.zeros(1, np.int64)
-
-    def P(a, t):
-        return a.ctypes.data_as(C.POINTER(t))
-
-    rc = lib.engine_spr_pass_parallel(
-        h, num_cores, 1 if strict_stop else 0, allowed_fails,
-        threshold_log_lk, P(new_root, C.c_int32),
-        P(improvement, C.c_double),
-        topo.ctypes.data_as(C.POINTER(C.c_long)),
-        blen.ctypes.data_as(C.POINTER(C.c_long)),
-        P(searched, C.c_int64), P(proposed, C.c_int64),
-        P(assigned, C.c_int64))
-    if rc == 2:
-        # unsupported state: hand the (unchanged) tree back and let the
-        # caller run the fork path
-        _export_engine(rt, h)
-        lib.engine_free(h)
-        return None
-    if rc != 0:
-        msg = lib.engine_error(h).decode()
-        lib.engine_free(h)
-        raise RuntimeError(f"native parallel SPR engine: {msg}")
-    if int(assigned[0]):
-        print(f"Assigned {num_cores} cores for {int(assigned[0])} nodes.")
-    for c in range(num_cores):
-        print(f"Searched {int(searched[c])} nodes within core {c} and "
-              f"found {int(proposed[c])} proposed SPR moves")
-    print("Found proposed SPR moves, merged, and sorted.")
-    _export_engine(rt, h, mat=True)
-    sbuf = np.zeros(9, np.float64)
-    lib.engine_stats(h, P(sbuf, C.c_double))
-    rt.num_refs += int(sbuf[6])
-    nr = int(new_root[0])
-    lib.engine_free(h)
-    return (nr if nr >= 0 else None, float(improvement[0]))
+    with NativeSession._one_shot(rt, root, spr_budget=True) as one:
+        if one is None:
+            return None
+        res = one.spr_parallel(num_cores, strict_stop, allowed_fails,
+                               threshold_log_lk,
+                               threshold_topology_placement)
+        # an unsupported state (None) hands the unchanged tree back and
+        # the caller runs the fork path
+        one.close(mat=res is not None)
+        return res
 
 
 def _import_engine(rt, root, transfer):
@@ -647,9 +547,6 @@ def _import_engine(rt, root, transfer):
                 if v is not None:
                     v.disarm()
 
-    def P(a, t):
-        return a.ctypes.data_as(C.POINTER(t))
-
     dc = rt.dc
     # full threshold set (notably thresholdLogLKconsecutivePlacement: the
     # SPR crawl's failed-pass gate reads E->threshold_consec — a 0 here
@@ -662,21 +559,21 @@ def _import_engine(rt, root, transfer):
         dc.thresholdLogLKconsecutivePlacement, dc.oneMutBLen,
         dc.effectivelyNon0BLen, 0, 1 if rt.use_local_reference else 0,
         rt.cfg.maxNumDescendantsForMATClade, rt.cfg.minNumNon4))
-    lib.engine_import(h, n, P(up, C.c_int32), P(c0, C.c_int32),
-                      P(c1, C.c_int32), P(dist, C.c_double),
-                      P(ndesc, C.c_int32), P(dirty, C.c_uint8),
-                      P(repl, C.c_int32), P(pv, C.c_int64),
-                      P(upr, C.c_int64), P(upl, C.c_int64),
-                      P(totup, C.c_int64), P(minor_counts, C.c_int32),
-                      P(n_muts, C.c_int32), P(muts_flat, C.c_int32), root)
+    lib.engine_import(h, n, _ptr(up), _ptr(c0),
+                      _ptr(c1), _ptr(dist),
+                      _ptr(ndesc), _ptr(dirty),
+                      _ptr(repl), _ptr(pv),
+                      _ptr(upr), _ptr(upl),
+                      _ptr(totup), _ptr(minor_counts),
+                      _ptr(n_muts), _ptr(muts_flat), root)
     if tree.use_hnz:
         lib.engine_set_hnz(h, rt.cfg.HnZ)
         nd0 = np.asarray(tree.nDesc0, i32)
-        lib.engine_import_ndesc0(h, P(nd0, C.c_int32))
+        lib.engine_import_ndesc0(h, _ptr(nd0))
     return h
 
 
-def _export_engine(rt, h, raise_on=None, mutated=True, mat=False):
+def _export_engine(rt, h, mutated=True, mat=False):
     """Write the engine's tree back into rt.tree, re-wrapping vector ids
     (counterpart of the transfer-mode _import_engine): topology, lengths,
     dirty flags and vectors; with ``mat`` also the replacement counts and
@@ -691,30 +588,8 @@ def _export_engine(rt, h, raise_on=None, mutated=True, mat=False):
     lib = store.lib
     tree = rt.tree
     n = len(tree.up)
-    i32, i64, f64, u8 = np.int32, np.int64, np.float64, np.uint8
-    e_up = np.empty(n, i32)
-    e_c0 = np.empty(n, i32)
-    e_c1 = np.empty(n, i32)
-    e_dist = np.empty(n, f64)
-    e_name = np.empty(n, i32)
-    e_nd = np.empty(n, i32)
-    e_dirty = np.empty(n, u8)
-    e_pv = np.empty(n, i64)
-    e_upr = np.empty(n, i64)
-    e_upl = np.empty(n, i64)
-    e_tot = np.empty(n, i64)
-    e_minor = np.empty(n, i32)
-    e_nm = np.empty(n, i32)
-
-    def P(a, t):
-        return a.ctypes.data_as(C.POINTER(t))
-
-    lib.engine_export_nodes(
-        h, P(e_up, C.c_int32), P(e_c0, C.c_int32), P(e_c1, C.c_int32),
-        P(e_dist, C.c_double), P(e_name, C.c_int32), P(e_nd, C.c_int32),
-        P(e_dirty, C.c_uint8), P(e_pv, C.c_int64), P(e_upr, C.c_int64),
-        P(e_upl, C.c_int64), P(e_tot, C.c_int64), P(e_minor, C.c_int32),
-        P(e_nm, C.c_int32))
+    (e_up, e_c0, e_c1, e_dist, _, e_nd, e_dirty, e_pv, e_upr, e_upl, e_tot,
+     _, e_nm) = _export_nodes(lib, h, n)
     tree.up = [u if u >= 0 else None for u in e_up.tolist()]
     tree.children = [[] if a < 0 else [a, b]
                      for a, b in zip(e_c0.tolist(), e_c1.tolist())]
@@ -730,18 +605,18 @@ def _export_engine(rt, h, raise_on=None, mutated=True, mat=False):
     tree.probVectUpLeft = wrap(e_upl)
     tree.probVectTotUp = wrap(e_tot)
     if tree.use_hnz:
-        e_nd0 = np.empty(n, i32)
-        lib.engine_export_ndesc0(h, P(e_nd0, C.c_int32))
+        e_nd0 = np.empty(n, np.int32)
+        lib.engine_export_ndesc0(h, _ptr(e_nd0))
         tree.nDesc0 = e_nd0.tolist()
     if not mat:
         return
-    e_repl = np.empty(n, i32)
-    lib.engine_export_replacements(h, P(e_repl, C.c_int32))
+    e_repl = np.empty(n, np.int32)
+    lib.engine_export_replacements(h, _ptr(e_repl))
     tree.replacements = e_repl.tolist()
     tree.mutations = [[] for _ in range(n)]
     for node in np.nonzero(e_nm)[0].tolist():
-        buf = np.empty(int(e_nm[node]) * 3, i32)
-        lib.engine_export_muts(h, node, P(buf, C.c_int32))
+        buf = np.empty(int(e_nm[node]) * 3, np.int32)
+        lib.engine_export_muts(h, node, _ptr(buf))
         flat = buf.tolist()
         tree.mutations[node] = [tuple(flat[k:k + 3])
                                 for k in range(0, len(flat), 3)]
@@ -756,9 +631,10 @@ def native_phase_supported(rt) -> bool:
 class NativeSession:
     """A persistent C++ Engine spanning several host-driver phases.
 
-    The one-shot phase helpers below (run_native_recalculate,
-    run_native_tree_lk, ...) each build a fresh Engine, run one phase, and
-    tear it down again — an O(n) import/export round-trip per call that at
+    Every engine phase runs through a method of this class.  Outside a
+    session a phase helper below (run_native_recalculate,
+    run_native_tree_lk, ...) opens a one-shot engine (:meth:`_one_shot`)
+    for its one call — an O(n) import/export round-trip per call that at
     pandemic scale costs more than the phases themselves.  A session
     imports the tree ONCE (transfer mode: vector ownership moves to the
     engine), runs any number of native phases against the resident state,
@@ -780,26 +656,51 @@ class NativeSession:
     def __init__(self, rt, root):
         self.rt = rt
         self.lib = None
+        self.h = None
         self._last_root = root
-        if self._attach(root):
-            rt.tracer.count("engine.sessions")
 
-    def _attach(self, root) -> bool:
-        """Import the tree (transfer mode) into a new engine with the
-        run's SPR/root budgets and threads; False, with no engine, where
-        an aliased vector handle makes the transfer unsafe."""
+    def _attach(self, root, transfer=True, spr_budget=True,
+                root_budget=True, threads=True) -> bool:
+        """Import the tree into a new engine (``transfer`` as in
+        ``_import_engine``) and set the run's SPR budget, root budget and
+        threads where asked (a session sets all three).  False, with no
+        engine, where an aliased vector handle makes the transfer
+        unsafe."""
         rt = self.rt
-        self.h = _import_engine(rt, root, transfer=True)
+        self.h = _import_engine(rt, root, transfer)
         if self.h is None:
             return False
         self.lib = rt.kern.store.lib
-        if rt.cfg.topologyBudget:
-            self.lib.engine_set_spr_budget(self.h, rt.cfg.topologyBudget)
-        if rt.cfg.rootSearchBudget:
-            self.lib.engine_set_root_budget(self.h, rt.cfg.rootSearchBudget)
-        if rt.cfg.numCores > 1:
-            self.lib.engine_set_threads(self.h, rt.cfg.numCores)
+        cfg = rt.cfg
+        if spr_budget and cfg.topologyBudget:
+            self.lib.engine_set_spr_budget(self.h, cfg.topologyBudget)
+        if root_budget and cfg.rootSearchBudget:
+            self.lib.engine_set_root_budget(self.h, cfg.rootSearchBudget)
+        if threads and cfg.numCores > 1:
+            self.lib.engine_set_threads(self.h, cfg.numCores)
         return True
+
+    @classmethod
+    @contextlib.contextmanager
+    def _one_shot(cls, rt, root, transfer=True, spr_budget=False,
+                  root_budget=False, threads=False):
+        """An engine for one phase where no session is live: the tree
+        imported by :meth:`_attach` with only the settings the caller
+        names; neither the run's live session nor counted in
+        ``engine.sessions``.  Yields None where the transfer is unsafe.  The phase hands a transferred tree
+        back itself (:meth:`close`); an engine still held at the end (a
+        borrow, or a phase that raised) is freed with no export."""
+        one = cls(rt, root)
+        if not one._attach(root, transfer, spr_budget, root_budget,
+                           threads):
+            yield None
+            return
+        try:
+            yield one
+        finally:
+            if one.h is not None:
+                one.lib.engine_free(one.h)
+                one.h = None
 
     def suspend(self):
         """Hand the resident state back to rt.tree and free the engine,
@@ -825,12 +726,36 @@ class NativeSession:
 
     def _err(self, what):
         msg = self.lib.engine_error(self.h).decode()
-        raise RuntimeError(f"native {what} (session): {msg}")
+        raise RuntimeError(f"native {what}: {msg}")
 
-    def recalculate(self):
+    def recalculate(self) -> bool:
+        """Full recompute of the resident tree.  Under an error-rate model
+        (never a session's) it replays the per-tip shared-list refresh
+        schedule inside the engine's post-order (engine_recalculate_err);
+        False, with nothing recomputed, where that schedule cannot be
+        collected: its dry scan precedes any host mutation, so the caller
+        recomputes the untouched tree in Python."""
         self._sync()
-        if self.lib.engine_recalculate(self.h) != 0:
+        rt = self.rt
+        if rt.model.using_error_rate and not rt.cfg.onlyNambiguities:
+            patches = rt.collect_error_patches(self.root())
+            if patches is None:
+                return False
+            n = len(patches)
+            nodes = np.asarray([p[0] for p in patches], np.int32)
+            tags = np.asarray([p[1] for p in patches], np.int32)
+            vals = np.asarray([p[2] for p in patches],
+                              np.float64).reshape(n, 4) if n else \
+                np.zeros((0, 4), np.float64)
+            rc = self.lib.engine_recalculate_err(
+                self.h, nodes.ctypes.data_as(C.POINTER(C.c_int32)),
+                tags.ctypes.data_as(C.POINTER(C.c_int32)),
+                vals.ctypes.data_as(C.POINTER(C.c_double)), n)
+        else:
+            rc = self.lib.engine_recalculate(self.h)
+        if rc != 0:
             self._err("recalculate")
+        return True
 
     def tree_lk(self) -> float:
         self._sync()
@@ -873,49 +798,54 @@ class NativeSession:
             self._err("EM crawl")
         return int(num_tips)
 
-    def spr_pass(self, strict_stop, allowed_fails, threshold_log_lk,
-                 threshold_topology_placement):
+    def _spr_params(self, threshold_topology_placement):
+        """Sync the model and set the SPR crawl's parameters, as every SPR
+        phase does first."""
         self._sync()
         rt = self.rt
-        dc = rt.dc
         self.lib.engine_set_spr_params(
-            self.h, dc.thresholdLogLKoptimizationTopology,
+            self.h, rt.dc.thresholdLogLKoptimizationTopology,
             threshold_topology_placement, rt.cfg.defaultBLen,
             rt.cfg.maxReplacements)
+
+    def _spr_moves(self, what, call, *args):
+        """``call(h, *args, new_root, improvement, topology updates,
+        branch-length updates)``, an SPR phase that applies moves; the tree
+        is marked mutated where it moved (a phase that moved nothing left
+        every vector as it was).  Returns (new_root_or_None, improvement,
+        topology updates, branch-length updates)."""
         new_root = np.zeros(1, np.int32)
         improvement = np.zeros(1, np.float64)
         topo = np.zeros(1, np.int64)
         blen = np.zeros(1, np.int64)
-        rc = self.lib.engine_spr_pass(
-            self.h, 1 if strict_stop else 0, allowed_fails,
-            threshold_log_lk,
-            new_root.ctypes.data_as(C.POINTER(C.c_int32)),
-            improvement.ctypes.data_as(C.POINTER(C.c_double)),
-            topo.ctypes.data_as(C.POINTER(C.c_long)),
-            blen.ctypes.data_as(C.POINTER(C.c_long)))
+        rc = call(self.h, *args,
+                  new_root.ctypes.data_as(C.POINTER(C.c_int32)),
+                  improvement.ctypes.data_as(C.POINTER(C.c_double)),
+                  topo.ctypes.data_as(C.POINTER(C.c_long)),
+                  blen.ctypes.data_as(C.POINTER(C.c_long)))
         if rc != 0:
-            self._err("SPR pass")
+            self._err(what)
         if topo[0] or blen[0]:
-            # a pass that moved nothing left every vector as it was
-            rt.mark_mutated()
+            self.rt.mark_mutated()
         nr = int(new_root[0])
         return (nr if nr >= 0 else None, float(improvement[0]),
                 int(topo[0]), int(blen[0]))
 
+    def spr_pass(self, strict_stop, allowed_fails, threshold_log_lk,
+                 threshold_topology_placement):
+        self._spr_params(threshold_topology_placement)
+        return self._spr_moves("SPR pass", self.lib.engine_spr_pass,
+                               1 if strict_stop else 0, allowed_fails,
+                               threshold_log_lk)
+
     def spr_parallel(self, num_cores, strict_stop, allowed_fails,
                      threshold_log_lk, threshold_topology_placement):
         """Threaded search-parallel/apply-serial pass on the resident
-        engine (engine_spr_pass_parallel); under a live session the fork
-        fallback states (tag registry, aliased imports) cannot occur, so
-        this never returns None."""
-        self._sync()
+        engine (engine_spr_pass_parallel).  None, with the tree as it was,
+        in a state the threads cannot run (the error model's tag
+        registry), which a live session never holds."""
+        self._spr_params(threshold_topology_placement)
         self.rt.mark_mutated()
-        rt = self.rt
-        dc = rt.dc
-        self.lib.engine_set_spr_params(
-            self.h, dc.thresholdLogLKoptimizationTopology,
-            threshold_topology_placement, rt.cfg.defaultBLen,
-            rt.cfg.maxReplacements)
         new_root = np.zeros(1, np.int32)
         improvement = np.zeros(1, np.float64)
         topo = np.zeros(1, np.int64)
@@ -923,18 +853,12 @@ class NativeSession:
         searched = np.zeros(num_cores, np.int64)
         proposed = np.zeros(num_cores, np.int64)
         assigned = np.zeros(1, np.int64)
-
-        def P(a, t):
-            return a.ctypes.data_as(C.POINTER(t))
-
         rc = self.lib.engine_spr_pass_parallel(
             self.h, num_cores, 1 if strict_stop else 0, allowed_fails,
-            threshold_log_lk, P(new_root, C.c_int32),
-            P(improvement, C.c_double),
-            topo.ctypes.data_as(C.POINTER(C.c_long)),
-            blen.ctypes.data_as(C.POINTER(C.c_long)),
-            P(searched, C.c_int64), P(proposed, C.c_int64),
-            P(assigned, C.c_int64))
+            threshold_log_lk, _ptr(new_root), _ptr(improvement), _ptr(topo),
+            _ptr(blen), _ptr(searched), _ptr(proposed), _ptr(assigned))
+        if rc == 2:
+            return None
         if rc != 0:
             self._err("parallel SPR pass")
         if int(assigned[0]):
@@ -955,13 +879,10 @@ class NativeSession:
         excl [K, 2], len) or an anchor (``a_*``: node, vid, tin, len); the
         vids are global-frame store handles, valid until
         :meth:`spr_release`."""
-        self._sync()
-        rt = self.rt
-        self.lib.engine_set_spr_params(
-            self.h, rt.dc.thresholdLogLKoptimizationTopology,
-            placement_thresh, rt.cfg.defaultBLen, rt.cfg.maxReplacements)
+        self._spr_params(placement_thresh)
         n = self.lib.engine_node_count(self.h)
         i32, i64, f64 = np.int32, np.int64, np.float64
+        # each dict in the order of engine_spr_collect's arguments
         q = {"node": np.empty(n, i32), "vid": np.empty(n, i64),
              "blen": np.empty(n, f64), "tip": np.empty(n, np.uint8),
              "base": np.empty(n, f64), "lo": np.empty(n, i32),
@@ -970,16 +891,9 @@ class NativeSession:
         a = {"node": np.empty(n, i32), "vid": np.empty(n, i64),
              "tin": np.empty(n, i32), "len": np.empty(n, i32)}
         counts = np.zeros(2, i64)
-
-        def P(arr):
-            return arr.ctypes.data_as(C.POINTER(
-                np.ctypeslib.as_ctypes_type(arr.dtype)))
-
         rc = self.lib.engine_spr_collect(
-            self.h, root, P(q["node"]), P(q["vid"]), P(q["blen"]),
-            P(q["tip"]), P(q["base"]), P(q["lo"]), P(q["hi"]),
-            P(q["excl"]), P(q["len"]), P(a["node"]), P(a["vid"]),
-            P(a["tin"]), P(a["len"]), P(counts))
+            self.h, root, *map(_ptr, q.values()), *map(_ptr, a.values()),
+            _ptr(counts))
         if rc != 0:
             self.spr_release()
             self._err("SPR collect")
@@ -999,31 +913,12 @@ class NativeSession:
         ``apply_spr_moves``): ``nodes`` in ascending order of improvement,
         applied best first.  Returns (new_root_or_None, improvement,
         topology updates, branch-length updates)."""
-        self._sync()
-        rt = self.rt
-        self.lib.engine_set_spr_params(
-            self.h, rt.dc.thresholdLogLKoptimizationTopology,
-            threshold_topology_placement, rt.cfg.defaultBLen,
-            rt.cfg.maxReplacements)
+        self._spr_params(threshold_topology_placement)
         nodes = np.ascontiguousarray(nodes, np.int32)
-        new_root = np.zeros(1, np.int32)
-        improvement = np.zeros(1, np.float64)
-        topo = np.zeros(1, np.int64)
-        blen = np.zeros(1, np.int64)
-        rc = self.lib.engine_spr_apply(
-            self.h, nodes.ctypes.data_as(C.POINTER(C.c_int32)), len(nodes),
-            1 if strict_stop else 0, allowed_fails, threshold_log_lk,
-            new_root.ctypes.data_as(C.POINTER(C.c_int32)),
-            improvement.ctypes.data_as(C.POINTER(C.c_double)),
-            topo.ctypes.data_as(C.POINTER(C.c_long)),
-            blen.ctypes.data_as(C.POINTER(C.c_long)))
-        if rc != 0:
-            self._err("SPR apply")
-        if topo[0] or blen[0]:
-            rt.mark_mutated()
-        nr = int(new_root[0])
-        return (nr if nr >= 0 else None, float(improvement[0]),
-                int(topo[0]), int(blen[0]))
+        return self._spr_moves("SPR apply", self.lib.engine_spr_apply,
+                               nodes.ctypes.data_as(C.POINTER(C.c_int32)),
+                               len(nodes), 1 if strict_stop else 0,
+                               allowed_fails, threshold_log_lk)
 
     def count_dirty(self):
         out = np.zeros(2, np.int64)
@@ -1065,43 +960,26 @@ class NativeSession:
         from the resident engine so the newick writers can run mid-session.
         Names, minor sequences, and supports are not touched by native SPR
         phases, and vector handles stay engine-owned (still stale)."""
-        lib, h = self.lib, self.h
         tree = self.rt.tree
-        n = len(tree.up)
-        i32, i64, f64, u8 = np.int32, np.int64, np.float64, np.uint8
-        e_up = np.empty(n, i32)
-        e_c0 = np.empty(n, i32)
-        e_c1 = np.empty(n, i32)
-        e_dist = np.empty(n, f64)
-        scratch32 = np.empty(n, i32)
-        scratch8 = np.empty(n, u8)
-        scratch64 = np.empty(n, i64)
-
-        def P(a, t):
-            return a.ctypes.data_as(C.POINTER(t))
-
-        lib.engine_export_nodes(
-            h, P(e_up, C.c_int32), P(e_c0, C.c_int32), P(e_c1, C.c_int32),
-            P(e_dist, C.c_double), P(scratch32, C.c_int32),
-            P(scratch32, C.c_int32), P(scratch8, C.c_uint8),
-            P(scratch64, C.c_int64), P(scratch64, C.c_int64),
-            P(scratch64, C.c_int64), P(scratch64, C.c_int64),
-            P(scratch32, C.c_int32), P(scratch32, C.c_int32))
+        e_up, e_c0, e_c1, e_dist, *_ = _export_nodes(self.lib, self.h,
+                                                       len(tree.up))
         tree.up = [u if u >= 0 else None for u in e_up.tolist()]
         tree.children = [[] if a < 0 else [a, b]
                          for a, b in zip(e_c0.tolist(), e_c1.tolist())]
         tree.dist = e_dist.tolist()
 
-    def close(self) -> int:
-        """Export the engine's full state back into rt.tree and free the
-        engine; returns the final root.  Idempotent: a scope that closed
-        early (e.g. before a python-side re-root) is safe to close again
-        in the opener's finally block."""
+    def close(self, mutated=False, mat=True) -> int:
+        """Export the engine's state back into rt.tree and free the
+        engine; returns the final root.  A session hands everything back,
+        its phases having marked their own changes; a one-shot phase passes
+        ``_export_engine``'s flags for what it changed.  Idempotent: a
+        scope that closed early (e.g. before a python-side re-root) is safe
+        to close again in the opener's finally block."""
         if self.h is None:
             return self._last_root
         rt = self.rt
         lib, h = self.lib, self.h
-        _export_engine(rt, h, mutated=False, mat=True)
+        _export_engine(rt, h, mutated=mutated, mat=mat)
         sbuf = np.zeros(9, np.float64)
         lib.engine_stats(h, sbuf.ctypes.data_as(C.POINTER(C.c_double)))
         rt.num_refs += int(sbuf[6])
@@ -1147,61 +1025,28 @@ def open_native_session(rt, root):
     if not native_phase_supported(rt) or rt.model.using_error_rate:
         return None
     ses = NativeSession(rt, root)
-    if ses.h is None:
+    if not ses._attach(root):
         return None
+    rt.tracer.count("engine.sessions")
     rt.native_session = ses
     return ses
 
 
 def run_native_recalculate(rt, root) -> bool:
     """Steady-state full recompute in the C++ engine; returns False when
-    unsupported (caller falls back to the python driver)."""
+    unsupported (the caller recomputes in Python).  A one-shot
+    recompute marks the tree mutated; a session's does not."""
     ses = rt.native_session
     if ses is not None:
-        ses.recalculate()
-        return True
+        return ses.recalculate()
     if not native_phase_supported(rt):
         return False
-    h = _import_engine(rt, root, transfer=True)
-    if h is None:
-        return False
-    lib = rt.kern.store.lib
-    if rt.cfg.numCores > 1:
-        lib.engine_set_threads(h, rt.cfg.numCores)
-    if rt.model.using_error_rate and not rt.cfg.onlyNambiguities:
-        if os.environ.get("MAPLE_NO_NATIVE_ERR_RECALC"):
-            _export_engine(rt, h)
-            lib.engine_free(h)
+    with NativeSession._one_shot(rt, root, threads=True) as one:
+        if one is None:
             return False
-        # replay the per-tip shared-list refresh schedule inside the
-        # engine's post-order (engine_recalculate_err).  Collection runs
-        # after the import (which can itself bail on aliased handles);
-        # its dry scan precedes any host mutation, so a None return can
-        # still hand the untouched state back to the python driver.
-        patches = rt.collect_error_patches(root)
-        if patches is None:
-            _export_engine(rt, h)
-            lib.engine_free(h)
-            return False
-        n = len(patches)
-        nodes = np.asarray([p[0] for p in patches], np.int32)
-        tags = np.asarray([p[1] for p in patches], np.int32)
-        vals = np.asarray([p[2] for p in patches],
-                          np.float64).reshape(n, 4) if n else \
-            np.zeros((0, 4), np.float64)
-        rc = lib.engine_recalculate_err(
-            h, nodes.ctypes.data_as(C.POINTER(C.c_int32)),
-            tags.ctypes.data_as(C.POINTER(C.c_int32)),
-            vals.ctypes.data_as(C.POINTER(C.c_double)), n)
-    else:
-        rc = lib.engine_recalculate(h)
-    if rc != 0:
-        msg = lib.engine_error(h).decode()
-        lib.engine_free(h)
-        raise RuntimeError(f"native recalculate: {msg}")
-    _export_engine(rt, h)
-    lib.engine_free(h)
-    return True
+        done = one.recalculate()
+        one.close(mutated=True, mat=False)
+        return done
 
 
 def run_native_tree_lk(rt, root):
@@ -1212,16 +1057,13 @@ def run_native_tree_lk(rt, root):
         return ses.tree_lk()
     if not native_phase_supported(rt):
         return None
-    h = _import_engine(rt, root, transfer=False)
-    if h is None:
-        return None
-    lib = rt.kern.store.lib
-    out = np.zeros(1, np.float64)
-    rc = lib.engine_tree_lk(h, out.ctypes.data_as(C.POINTER(C.c_double)))
-    lib.engine_free(h)
-    if rc != 0:
-        return None
-    return float(out[0])
+    with NativeSession._one_shot(rt, root, transfer=False) as one:
+        if one is None:
+            return None
+        try:
+            return one.tree_lk()
+        except RuntimeError:  # the python crawl takes over
+            return None
 
 
 def run_native_blen_sweep(rt, root, fast_pass=False):
@@ -1232,21 +1074,12 @@ def run_native_blen_sweep(rt, root, fast_pass=False):
         return ses.blen_sweep(fast_pass=fast_pass)
     if not native_phase_supported(rt):
         return None
-    h = _import_engine(rt, root, transfer=True)
-    if h is None:
-        return None
-    lib = rt.kern.store.lib
-    updates = np.zeros(1, np.int64)
-    rc = lib.engine_blen_sweep(
-        h, 1 if fast_pass else 0,
-        updates.ctypes.data_as(C.POINTER(C.c_int64)))
-    if rc != 0:
-        msg = lib.engine_error(h).decode()
-        lib.engine_free(h)
-        raise RuntimeError(f"native blen sweep: {msg}")
-    _export_engine(rt, h)
-    lib.engine_free(h)
-    return int(updates[0])
+    with NativeSession._one_shot(rt, root) as one:
+        if one is None:
+            return None
+        updates = one.blen_sweep(fast_pass=fast_pass)
+        one.close(mat=False)  # the sweep marked the tree mutated
+        return updates
 
 
 def run_native_root_search(rt, root, strict_stop, allowed_fails,
@@ -1263,57 +1096,28 @@ def run_native_root_search(rt, root, strict_stop, allowed_fails,
                                threshold_consecutive, threshold_opt)
     if not native_phase_supported(rt):
         return None
-    h = _import_engine(rt, root, transfer=False)
-    if h is None:
-        return None
-    lib = rt.kern.store.lib
-    if rt.cfg.rootSearchBudget:
-        lib.engine_set_root_budget(h, rt.cfg.rootSearchBudget)
-    n = len(rt.tree.up)
-    best_node = np.zeros(1, np.int32)
-    best_lk = np.zeros(1, np.float64)
-    cand_nodes = np.empty(n + 1, np.int32)
-    cand_scores = np.empty(n + 1, np.float64)
-    cand_count = np.zeros(1, np.int64)
-    rc = lib.engine_root_search(
-        h, 1 if strict_stop else 0, allowed_fails, threshold_log_lk,
-        threshold_consecutive, threshold_opt,
-        best_node.ctypes.data_as(C.POINTER(C.c_int32)),
-        best_lk.ctypes.data_as(C.POINTER(C.c_double)),
-        cand_nodes.ctypes.data_as(C.POINTER(C.c_int32)),
-        cand_scores.ctypes.data_as(C.POINTER(C.c_double)),
-        cand_count.ctypes.data_as(C.POINTER(C.c_int64)))
-    lib.engine_free(h)
-    if rc != 0:
-        return None
-    k = int(cand_count[0])
-    best_nodes = dict(zip(cand_nodes[:k].tolist(),
-                          cand_scores[:k].tolist()))
-    return int(best_node[0]), float(best_lk[0]), best_nodes
+    with NativeSession._one_shot(rt, root, transfer=False,
+                                 root_budget=True) as one:
+        if one is None:
+            return None
+        return one.root_search(strict_stop, allowed_fails, threshold_log_lk,
+                               threshold_consecutive, threshold_opt)
 
 
 def run_native_blen_loop(rt, root, max_extra=20):
     """The SPR-round branch-length finalization loop (sweep, then repeat
     while the previous sweep updated something, up to ``max_extra`` extra
-    sweeps) in one engine session — one import/export cycle instead of
-    one per sweep.  Returns the python loop's sub_round counter, or None
-    when unsupported."""
+    sweeps) in one engine — one import/export cycle instead of one per
+    sweep.  Returns the python loop's sub_round counter, or None when
+    unsupported."""
     ses = rt.native_session
     if ses is not None:
         return ses.blen_loop(max_extra)
     if not native_phase_supported(rt):
         return None
-    h = _import_engine(rt, root, transfer=True)
-    if h is None:
-        return None
-    lib = rt.kern.store.lib
-    sub_rounds = np.zeros(1, np.int64)
-    rc = lib.engine_blen_loop(
-        h, max_extra, sub_rounds.ctypes.data_as(C.POINTER(C.c_int64)))
-    if rc != 0:
-        msg = lib.engine_error(h).decode()
-        lib.engine_free(h)
-        raise RuntimeError(f"native blen loop: {msg}")
-    _export_engine(rt, h)
-    lib.engine_free(h)
-    return int(sub_rounds[0])
+    with NativeSession._one_shot(rt, root) as one:
+        if one is None:
+            return None
+        sub_rounds = one.blen_loop(max_extra)
+        one.close(mat=False)  # the loop marked the tree mutated
+        return sub_rounds

@@ -36,8 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ("-O2", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17")
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# P, C, prm, mm, rf, out, (scratch ...), N, K, B1, B2, uer, stream
-_GRID_ARGS = [_PTR] * 6 + [_INT] * 5 + [_PTR]
+# P, C, prm, mm, rf, out, scratch_int, scratch_rec, N, K, B1, B2, uer,
+# stream
 _WALK_ARGS = [_PTR] * 8 + [_INT] * 5 + [_PTR]
 # P, C, rows, prm, mm, rf, out, scratch_int, scratch_rec, N, K, M, B1, B2,
 # uer, stream
@@ -52,8 +52,6 @@ _KERNEL_FUNCTIONS = {
     "append_pairs_gathered_f64": (_GATHERED_ARGS, _INT),
     "append_pairs_scratch": ([_INT] * 4 + [_LONG_P] * 2, None),
     "maple_cuda_error_string": ([_INT], ctypes.c_char_p),
-    "append_pairs_grid_f32": (_GRID_ARGS, _INT),
-    "append_pairs_grid_f64": (_GRID_ARGS, _INT),
 }
 # P, C, prm, mm, rf, out, steps, pairs, n_p, n_c, N, K, B1, B2, uer
 _HOST_WALK_ARGS = [_PTR] * 10 + [_INT] * 5

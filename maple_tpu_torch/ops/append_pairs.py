@@ -19,9 +19,6 @@ functions are the kernel's.  Its plain PyTorch version,
 :func:`append_scores_gathered_plain`, is the tests' float64 yardstick:
 it costs some ten seconds a pass at 1,000 genomes, against a tenth for
 the walk.
-:func:`append_scores_prestacked_grid` launches the kernel that visits the
-whole B1 x B2 entry grid instead (``csrc/append_pairs_grid.cu``): the
-yardstick the walk kernel is timed and checked against, on no path.
 """
 from __future__ import annotations
 
@@ -57,9 +54,16 @@ def append_scores_prestacked(Pstk, Cflat, prm, mm_flat, rf, *, uer: bool):
     if device.type == "cpu":
         return append_scores_prestacked_plain(Pstk, Cflat, prm, mm_flat, rf,
                                               uer=uer)
-    built, (N, K, B1, B2), out = _kernel_call(Pstk, Cflat, prm, mm_flat, rf)
+    if device.type != "cuda":
+        raise ValueError(f"append_scores_prestacked: no kernel for device "
+                         f"{device}")
+    N, _, B1 = _check_inputs(Pstk, Cflat, prm, mm_flat, rf)
+    K = Cflat.shape[0]
+    B2 = Cflat.shape[-1] // NFIELDS
+    out = torch.empty((K, N), dtype=Pstk.dtype, device=device)
     if out.numel() == 0:
         return out
+    built = _build.library()
     n_int, n_rec = ctypes.c_longlong(), ctypes.c_longlong()
     built.lib.append_pairs_scratch(N, K, B1, B2, ctypes.byref(n_int),
                                    ctypes.byref(n_rec))
@@ -79,25 +83,6 @@ def append_scores_prestacked(Pstk, Cflat, prm, mm_flat, rf, *, uer: bool):
 
 
 append_scores_prestacked.launches = 0
-
-
-def append_scores_prestacked_grid(Pstk, Cflat, prm, mm_flat, rf, *,
-                                  uer: bool):
-    """The same scores from the kernel that visits the whole B1 x B2 entry
-    grid, on CUDA tensors only: the yardstick of ``chip_smoke.py`` and
-    ``tools/speed_of_light.py``.  It counts no launch."""
-    built, (N, K, B1, B2), out = _kernel_call(Pstk, Cflat, prm, mm_flat, rf)
-    if out.numel() == 0:
-        return out
-    fn = (built.lib.append_pairs_grid_f32 if Pstk.dtype == torch.float32
-          else built.lib.append_pairs_grid_f64)
-    with torch.cuda.device(Pstk.device):
-        stream = torch.cuda.current_stream(Pstk.device).cuda_stream
-        err = fn(Pstk.data_ptr(), Cflat.data_ptr(), prm.data_ptr(),
-                 mm_flat.data_ptr(), rf.data_ptr(), out.data_ptr(),
-                 N, K, B1, B2, int(bool(uer)), stream)
-    _build.check(built.lib, err, "append_pairs_grid kernel launch")
-    return out
 
 
 def append_scores_gathered(Pstk, Cflat, prm, mm_flat, rf, rows, *,
@@ -154,23 +139,6 @@ def append_scores_gathered(Pstk, Cflat, prm, mm_flat, rf, rows, *,
 
 
 append_scores_gathered.launches = 0
-
-
-def _kernel_call(Pstk, Cflat, prm, mm_flat, rf):
-    """What both kernels' wrappers do before a launch: refuse a device
-    without a kernel, validate, allocate the scores, load the library
-    (when there is anything to score).  Returns (library, (N, K, B1, B2),
-    scores)."""
-    device = Pstk.device
-    if device.type != "cuda":
-        raise ValueError(f"append_scores_prestacked: no kernel for device "
-                         f"{device}")
-    N, _, B1 = _check_inputs(Pstk, Cflat, prm, mm_flat, rf)
-    K = Cflat.shape[0]
-    B2 = Cflat.shape[-1] // NFIELDS
-    out = torch.empty((K, N), dtype=Pstk.dtype, device=device)
-    built = _build.library() if out.numel() else None
-    return built, (N, K, B1, B2), out
 
 
 def _check_inputs(Pstk, Cflat, prm, mm_flat, rf):

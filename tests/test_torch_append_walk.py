@@ -352,9 +352,9 @@ def _port_sources(*relative):
                     yield os.path.join(root, f)
 
 
-def test_yardstick_and_host_loop_are_on_no_path():
+def test_host_loop_is_on_no_path():
     """No placer, screen, mesh, pipeline or command-line module names the
-    grid kernel's wrapper or the walk's host loop."""
+    walk's host loop."""
     scanned = list(_port_sources("parallel", "pipeline.py", "dryrun.py",
                                  "cli.py", "__main__.py", "search",
                                  "runtime", "native"))
@@ -362,25 +362,12 @@ def test_yardstick_and_host_loop_are_on_no_path():
     for path in scanned:
         with open(path) as f:
             text = f.read()
-        for name in ("append_scores_prestacked_grid", "append_pairs_grid",
-                     "host_walk", "append_walk_host"):
+        for name in ("host_walk", "append_walk_host"):
             assert name not in text, f"{path} names {name}"
     # the wrapper itself reaches the walk kernel only
     import inspect
     src = inspect.getsource(TAP.append_scores_prestacked)
-    assert "grid" not in src and "host_walk" not in src
-
-
-def test_grid_wrapper_refuses_cpu_tensors():
-    """The yardstick has no plain version to fall to."""
-    rng = np.random.default_rng(0)
-    P = torch.from_numpy(rng.random((4, NFIELDS, 8)))
-    C = torch.from_numpy(rng.random((2, 1, 8 * NFIELDS)))
-    prm = torch.zeros(2, 1, 4, dtype=torch.float64)
-    mm = torch.zeros(1, 1, 16, dtype=torch.float64)
-    rf = torch.full((1, 1, 4), 0.25, dtype=torch.float64)
-    with pytest.raises(ValueError, match="no kernel"):
-        TAP.append_scores_prestacked_grid(P, C, prm, mm, rf, uer=False)
+    assert "host_walk" not in src
 
 
 def test_every_c_function_has_its_argtypes():

@@ -76,16 +76,29 @@ MANIFEST = {
     # not for the read-only root search, not for an SPR pass that moved
     # nothing); the transfers count into the run's tracer; the device
     # proxy SPR pass collects and applies in the session (spr_collect,
-    # spr_release, spr_apply)
+    # spr_release, spr_apply); every engine phase runs through a session
+    # method, the one-shot helpers (run_native_*) on a scoped session
+    # (_one_shot) with the import settings, export flags and fallbacks they
+    # had, the error model's recompute in NativeSession.recalculate; the
+    # node arrays are exported in one place (_export_nodes)
     "native/engine.py": dict(
-        changed=["NativeSession.<body>", "NativeSession.__init__",
-                 "NativeSession.close", "NativeSession.root_search",
-                 "NativeSession.spr_pass", "_export_engine",
+        changed=["NativePlacementEngine.export_to_tree",
+                 "NativePlacementEngine.snapshot_tree",
+                 "NativeSession.<body>", "NativeSession.__init__",
+                 "NativeSession._err", "NativeSession.close",
+                 "NativeSession.recalculate", "NativeSession.root_search",
+                 "NativeSession.spr_parallel", "NativeSession.spr_pass",
+                 "NativeSession.sync_topology", "_export_engine",
                  "_import_engine", "native_session_eligible",
-                 "run_native_spr_parallel", "run_native_spr_pass"],
-        added=["NativeSession._attach", "NativeSession.resume",
-               "NativeSession.suspend", "NativeSession.spr_collect",
-               "NativeSession.spr_release", "NativeSession.spr_apply"]),
+                 "open_native_session", "run_native_blen_loop",
+                 "run_native_blen_sweep", "run_native_recalculate",
+                 "run_native_root_search", "run_native_spr_parallel",
+                 "run_native_spr_pass", "run_native_tree_lk"],
+        added=["NativeSession._attach", "NativeSession._one_shot",
+               "NativeSession._spr_moves", "NativeSession._spr_params",
+               "NativeSession.resume", "NativeSession.suspend",
+               "NativeSession.spr_collect", "NativeSession.spr_release",
+               "NativeSession.spr_apply", "_export_nodes", "_ptr"]),
     "ops/pack.py": ALL,
     # the run takes a device; --devicePlacement's branches are the port's
     # (build_initial_tree_device: the proxy placer over a mesh on the
